@@ -1,0 +1,142 @@
+"""Device-resident placement index (counterpart of
+panmap_tpu/place/engine_tpu.py:35-154).
+
+Rows are re-mapped once per index to dense int ids on the host, so the
+row<->read join is an integer gather on the device.  The per-node reduction
+structures (BlockSegments for the full row stream, CscIndex for the sparse
+found-rows path) and the Euler tour of the DFS-preorder tree are built on
+the host and uploaded once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from panmap_tpu.index.builder import IndexArrays
+from panmap_tpu.utils.fastnp import unique_inverse
+
+from . import metrics
+
+
+@dataclass
+class DeviceIndex:
+    """Host-prepared, device-resident index tensors."""
+
+    unique_hashes: np.ndarray  # u64[U] sorted (host only, for query mapping)
+    row_id: torch.Tensor  # i64[T] index into unique_hashes
+    row_parent: torch.Tensor  # i16[T] parent seed counts
+    row_child: torch.Tensor  # i16[T] child seed counts
+    euler_in: torch.Tensor  # i64[N]
+    euler_out: torch.Tensor  # i64[N]
+    n_nodes: int
+    root_rows: tuple  # (start, end) row range of the root node
+    blk: metrics.BlockSegments  # static blocked per-node reduction
+    csc: metrics.CscIndex  # rows grouped by unique hash (sparse path)
+    # host copies of the root node's row ids / child counts (the f64
+    # weighted-containment denominator of the sparse path)
+    root_rid_np: np.ndarray
+    root_child_np: np.ndarray
+    device: torch.device
+
+
+def euler_tour(parent_index: np.ndarray):
+    """(euler_in, euler_out) slots of a DFS-preorder tree given its parent
+    array; raises when the numbering is not a preorder (the Euler-tour
+    prefix is only valid when the subtree of i is [i, i + size[i]))."""
+    n_nodes = len(parent_index)
+    parent = parent_index.astype(np.int64)
+    sizes = np.ones(n_nodes, dtype=np.int64)
+    for i in range(n_nodes - 1, 0, -1):
+        sizes[parent[i]] += sizes[i]
+    # preorder: euler_in[i] = i + (nodes closed before i) = 2i - depth[i]
+    depth = np.zeros(n_nodes, dtype=np.int64)
+    for i in range(1, n_nodes):
+        depth[i] = depth[parent[i]] + 1
+    euler_in = 2 * np.arange(n_nodes, dtype=np.int64) - depth
+    euler_out = euler_in + 2 * sizes - 1
+    if n_nodes > 1:
+        ii = np.arange(1, n_nodes)
+        pp = parent[ii]
+        if not np.all((pp < ii) & (ii < pp + sizes[pp])):
+            raise ValueError("index parent_index is not in DFS preorder")
+    return euler_in, euler_out
+
+
+def prepare_device_index(idx: IndexArrays, device) -> DeviceIndex:
+    """Host -> device index preparation on one device (``device`` may be the
+    CPU for the parity tests)."""
+    device = torch.device(device)
+    uniq, row_id = unique_inverse(idx.seed_hashes)
+    n_nodes = len(idx.node_offsets) - 1
+    offs = idx.node_offsets.astype(np.int64)
+    row_node = np.repeat(np.arange(n_nodes, dtype=np.int32), np.diff(offs))
+    parent = idx.parent_index.astype(np.int64)
+    euler_in, euler_out = euler_tour(parent)
+    rid = row_id.astype(np.int32)
+    a, b = int(offs[0]), int(offs[1])
+
+    def put(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
+                                                              dtype=dt)
+
+    return DeviceIndex(
+        unique_hashes=uniq,
+        row_id=put(rid, torch.int64),
+        # counts stay i16 (their storage dtype); scorers cast to f32, exact
+        row_parent=put(idx.parent_counts.astype(np.int16), torch.int16),
+        row_child=put(idx.child_counts.astype(np.int16), torch.int16),
+        euler_in=put(euler_in, torch.int64),
+        euler_out=put(euler_out, torch.int64),
+        n_nodes=n_nodes,
+        root_rows=(a, b),
+        blk=metrics.block_segments(row_node, n_nodes, device),
+        csc=metrics.csc_index(rid, idx.parent_counts, idx.child_counts,
+                              row_node, len(uniq), n_nodes, parent, device),
+        root_rid_np=rid[a:b].copy(),
+        root_child_np=idx.child_counts[a:b].astype(np.float64),
+        device=device,
+    )
+
+
+def device_index_from_jax(jax_dev, device) -> DeviceIndex:
+    """The JAX package's single-device DeviceIndex (engine_tpu.DeviceIndex,
+    read out as numpy arrays) as the port's: the index state carries across
+    unchanged, which the parity tests use to score the same tensors in both
+    packages.  Integer index arrays widen to int64 (torch's index dtype)."""
+    device = torch.device(device)
+    if jax_dev.blk is None or jax_dev.csc is None:
+        raise ValueError("a mesh-sharded DeviceIndex has no blk/csc")
+
+    def put(x, dt=None):
+        t = torch.from_numpy(np.array(x))
+        return t.to(device=device, dtype=dt or t.dtype)
+
+    i64 = torch.int64
+    jb, jc = jax_dev.blk, jax_dev.csc
+    blk = metrics.BlockSegments(
+        L=jb.L, B=jb.B, pad=jb.pad, n_rows=jb.n_rows,
+        lastp=put(jb.lastp, i64), base=put(jb.base, i64),
+        has_base=put(jb.has_base), spanning=put(jb.spanning),
+        seg_node=put(jb.seg_node, i64), eb_blk=put(jb.eb_blk, i64),
+        q_flat=put(jb.q_flat, i64), has_bnd=put(jb.has_bnd))
+    csc = metrics.CscIndex(
+        off=put(jc.off), P=put(jc.P), C=put(jc.C), node=put(jc.node, i64),
+        mag_prefix=put(jc.mag_prefix),
+        off_np=np.array(jc.off_np), n_rows=jc.n_rows)
+    return DeviceIndex(
+        unique_hashes=np.array(jax_dev.unique_hashes),
+        row_id=put(jax_dev.row_id, i64),
+        row_parent=put(jax_dev.row_parent),
+        row_child=put(jax_dev.row_child),
+        euler_in=put(jax_dev.euler_in, i64),
+        euler_out=put(jax_dev.euler_out, i64),
+        n_nodes=int(jax_dev.n_nodes),
+        root_rows=tuple(int(x) for x in jax_dev.root_rows),
+        blk=blk, csc=csc,
+        root_rid_np=np.array(jax_dev.root_rid_np),
+        root_child_np=np.array(jax_dev.root_child_np),
+        device=device,
+    )
