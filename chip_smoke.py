@@ -1,34 +1,49 @@
 #!/usr/bin/env python3
 """GPU smoke run of panmap_tpu_torch, the PyTorch/CUDA port: builds the
-port's CUDA kernel from the checkout, holds it against its plain PyTorch
+port's CUDA kernels from the checkout, holds each against its plain PyTorch
 version, and drives the single-sample path (place -> align -> genotype ->
-consensus) on one card at the size of the sars_20000 demo, checking every
-output byte for byte against the port's own run on CPU tensors, where the
-kernel wrapper and the placement scorer use their plain PyTorch versions.
+consensus) on one card, for short reads at the size of the sars_20000 demo
+and for long reads at the size of a SARS-CoV-2 Nanopore run, checking every
+output byte for byte against the port's own run with the kernels' plain
+versions.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
 Phases, one line each with its time:
   1. card, versions, native host library
-  2. nvcc build of panmap_tpu_torch/csrc/*.cu
+  2. nvcc build of panmap_tpu_torch/csrc/*.cu (one nvcc per source, in
+     parallel)
   3. banded-SW kernel vs its plain version (>= 4,096 pairs, bit-equal)
   4. placement on the full index: TorchPlacer.place_exact on the card, on
      the sparse and the full-stream route, each equal to TorchPlacer on the
      CPU and to the f64 host engine (the port's --host-place route)
-  5. the pipeline through the port's stage functions on the card (kernel
-     launch counts reset just before), then the same stages on CPU tensors;
-     the five outputs must be byte-equal, and the SW kernel equals its plain
-     version on the very inputs the pipeline gave it
-  6. jax was never imported
+  5. the short-read pipeline through the port's stage functions on the card
+     (kernel launch counts reset just before), then the same stages on CPU
+     tensors; the five outputs must be byte-equal
+  6. the SW kernel equals its plain version on the very inputs the
+     pipeline gave it
+  7. long-read DP kernel vs its plain version on the card: 256 random
+     items (LQ 600-3,000, W 801-2,401; substitutions, short indels, long
+     deletions and insertions, z-drop stops), half map-ont, half map-hifi;
+     direction bytes and row stats bit-equal
+  8. the long-read pipeline (map-ont) on the card on 5,000 reads, launch
+     count reset just before, then the same stages on the same card with
+     the kernel's plain version swapped in; the five outputs must be
+     byte-equal, and on every launch of the first run the kernel's outputs
+     equal the plain version's on the same inputs.  (The port's run on CPU
+     tensors, as phase 5 does, would push ~6.6 G DP cells through the plain
+     version on the CPU: minutes, so the plain version runs on the card.)
+  9. jax was never imported
 
 The JAX package itself is not driven here: tests/test_torch_*.py hold the
 port against it on the CPU.
 
-The workload (panmap_tpu_torch.synthetic) is made from --seed: 39,999 tree
-nodes, ~2.42 M index rows, a 29,903 bp genome, 51,169 read pairs of 150 bp.
-The last two lines are a JSON line per kernel and the result line; any
-failure raises (exit code != 0) and prints no result.  Needs one CUDA card;
-exits non-zero without one.
+The workloads (panmap_tpu_torch.synthetic) are made from --seed: 39,999
+tree nodes, ~2.42 M index rows and a 29,903 bp genome for both; 51,169 read
+pairs of 150 bp for the short-read path; 5,000 single-end ONT-like reads of
+1,000-1,400 bp for the long-read path.  The last two lines are a JSON line
+listing the kernels and the result line; any failure raises (exit code != 0)
+and prints no result.  Needs one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -195,7 +210,7 @@ def placement_phase(tp, TorchPlacer, w, cfg, dev, cpu):
 
 def run_stages(tp, w, cfg, device, stats):
     """The port's stages in _run_pipeline_inner's order; returns (best node,
-    n_reads, variants, stage walls)."""
+    n_reads, variants, stage walls, placed reads)."""
     walls = {}
     t0 = time.perf_counter()
     prefetch = tp._start_align_prefetch(cfg)
@@ -214,7 +229,26 @@ def run_stages(tp, w, cfg, device, stats):
     tp.run_consensus(cfg, ref, best, final)
     walls["consensus"] = time.perf_counter() - t1
     walls["total"] = time.perf_counter() - t0
-    return best, n_reads, final, walls
+    return best, n_reads, final, walls, placed
+
+
+def same_outputs(a, b, what):
+    """Raise unless the five outputs under prefixes a and b are
+    byte-equal; returns their sizes."""
+    sizes = []
+    for ext in OUTPUTS:
+        if not filecmp.cmp(f"{a}.{ext}", f"{b}.{ext}", shallow=False):
+            raise AssertionError(f"{ext} differs from {what}")
+        sizes.append(f"{ext} {os.path.getsize(f'{a}.{ext}')} B")
+    return sizes
+
+
+def pipeline_cfg(tp, w, out, name, log=None):
+    os.makedirs(os.path.join(out, name), exist_ok=True)
+    return tp.PipelineConfig(
+        panman="synthetic", reads1=w.reads1, reads2=w.reads2,
+        output=os.path.join(out, name, "sample"), device_pileup="off",
+        log=log or (lambda *a, **k: None))
 
 
 def pipeline_phase(tp, sw, w, out, dev, cpu):
@@ -222,13 +256,6 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
     the kernel's main-path inputs captured, then on CPU tensors; the five
     outputs must be byte-equal.  Returns (report, launches, captured
     [(q, r, qlens, out)])."""
-    def cfg_for(name):
-        os.makedirs(os.path.join(out, name), exist_ok=True)
-        return tp.PipelineConfig(
-            panman="synthetic", reads1=w.reads1, reads2=w.reads2,
-            output=os.path.join(out, name, "sample"), device_pileup="off",
-            log=lambda *a, **k: None)
-
     captured = []
     launch = sw.banded_sw_scores
 
@@ -237,11 +264,11 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
         captured.append((q, r, qlens, res))
         return res
 
-    cfg, stats = cfg_for("device"), {}
+    cfg, stats = pipeline_cfg(tp, w, out, "device"), {}
     sw.banded_sw_scores = capturing
     sw.LAUNCHES = 0
     try:
-        best, n_reads, final, walls = run_stages(tp, w, cfg, dev, stats)
+        best, n_reads, final, walls, _ = run_stages(tp, w, cfg, dev, stats)
     finally:
         sw.banded_sw_scores = launch
     launches = sw.LAUNCHES
@@ -251,18 +278,13 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
     if not final:
         raise AssertionError("no variant called: the workload is broken")
 
-    ccfg, cstats = cfg_for("cpu"), {}
+    ccfg, cstats = pipeline_cfg(tp, w, out, "cpu"), {}
     t1 = time.perf_counter()
-    cbest, _, _, _ = run_stages(tp, w, ccfg, cpu, cstats)
+    cbest, *_ = run_stages(tp, w, ccfg, cpu, cstats)
     cpu_wall = time.perf_counter() - t1
     if cbest != best or cstats != stats:
         raise AssertionError(f"CPU run: {cbest} {cstats} vs {best} {stats}")
-    sizes = []
-    for ext in OUTPUTS:
-        a, b = f"{cfg.output}.{ext}", f"{ccfg.output}.{ext}"
-        if not filecmp.cmp(a, b, shallow=False):
-            raise AssertionError(f"{ext} differs from the CPU-tensor run")
-        sizes.append(f"{ext} {os.path.getsize(a)} B")
+    sizes = same_outputs(cfg.output, ccfg.output, "the CPU-tensor run")
     shapes = [tuple(q.shape) + (r.shape[1],) for q, r, _, _ in captured]
     report = (f"pipeline on {n_reads} reads -> {best}: "
               + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
@@ -272,6 +294,195 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
               f"{len(final)} variants; byte-equal to the CPU-tensor run "
               f"({cpu_wall:.2f}s): " + ", ".join(sizes))
     return report, launches, captured
+
+
+def long_items(rng, n, lq_lo=600, lq_hi=3000, w_lo=801, w_hi=2401):
+    """(reference codes int8, [(query codes, dlo, dhi)]): random items of
+    the cases of tests/test_align_long.py::test_long_device_dp_bit_equal_host
+    at main-path sizes.  Every item carries 5% substitutions; in turn it
+    also has short indels, an 80-300 bp deletion (the long-gap tier), an
+    80-300 bp insertion, or an unrelated second half (a z-drop stop)."""
+    import numpy as np
+
+    ref = rng.integers(0, 4, 60000).astype(np.int8)
+    items = []
+    for t in range(n):
+        L = int(rng.integers(lq_lo, lq_hi + 1))
+        half = int(rng.integers(w_lo, w_hi + 1)) // 2
+        p = int(rng.integers(half, len(ref) - L - half - 400))
+        frag = ref[p:p + L].copy()
+        subs = rng.random(L) < 0.05
+        frag[subs] = (frag[subs] + 1) % 4
+        kind = t % 5
+        if kind == 1:  # short indels
+            for cut in sorted(rng.integers(10, L - 10, 6))[::-1]:
+                k = int(rng.integers(1, 6))
+                frag = (np.delete(frag, range(cut, cut + k)) if cut % 2
+                        else np.insert(frag, cut, rng.integers(0, 4, k)))
+        elif kind == 2:  # long deletion
+            d = int(rng.integers(80, min(300, half) + 1))
+            frag = np.concatenate([frag[: L // 2],
+                                   ref[p + L // 2 + d: p + L + d]])
+        elif kind == 3:  # long insertion
+            frag = np.insert(frag, L // 3, rng.integers(
+                0, 4, int(rng.integers(80, 301))))
+        elif kind == 4:  # unrelated second half
+            frag[L // 2:] = rng.integers(0, 4, L - L // 2)
+        items.append((frag.astype(np.int8), p - half, p + half))
+    return ref, items
+
+
+def long_inputs(items, dev):
+    """q int8 [B, LQ], meta int32 [B, 3] on ``dev`` and the width W, laid
+    out as long_dp.long_dp_batch lays out a launch."""
+    import numpy as np
+    import torch
+
+    LQ = max(len(q) for q, _, _ in items)
+    W = max(dhi - dlo + 1 for _, dlo, dhi in items)
+    qb = np.full((len(items), LQ), 4, np.int8)
+    meta = np.zeros((len(items), 3), np.int32)
+    for s, (q, dlo, dhi) in enumerate(items):
+        qb[s, : len(q)] = q
+        meta[s] = (len(q), dlo, dhi - dlo + 1)
+    return (torch.from_numpy(qb).to(dev), torch.from_numpy(meta).to(dev), W,
+            float(sum(len(q) * (dhi - dlo + 1) for q, dlo, dhi in items)))
+
+
+def same_rows(got, want, what):
+    """Raise unless two (dirs, stats) pairs are bit-equal; returns max |diff|
+    over both."""
+    import torch
+
+    err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"long DP kernel != plain version: {what}")
+    return err
+
+
+def long_kernel_phase(long_dp, rng, dev, n_items):
+    """Phase 7: the kernel vs its plain version on random items, half
+    map-ont, half map-hifi.  Returns (report, max |diff|)."""
+    import torch
+
+    from panmap_tpu_torch.align.longread import MAP_HIFI, MAP_ONT
+
+    ref, items = long_items(rng, n_items)
+    ref_t = torch.from_numpy(ref).to(dev)
+    parts, errs = [], []
+    for k, pre in enumerate((MAP_ONT, MAP_HIFI)):
+        q, meta, W, cells = long_inputs(items[k::2], dev)
+        args = (q, ref_t, meta, pre, W)
+        got = long_dp.long_dp_rows(*args)
+        want = long_dp.long_dp_rows_reference(*args)
+        torch.cuda.synchronize()
+        errs.append(same_rows(got, want, pre.name))
+        del got, want
+        ms = cuda_time_ms(lambda: long_dp.long_dp_rows(*args), 3)
+        plain_ms = cuda_time_ms(
+            lambda: long_dp.long_dp_rows_reference(*args), 1)
+        parts.append(f"{pre.name} {q.shape[0]} x {q.shape[1]} x {W}: kernel "
+                     f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), plain "
+                     f"{plain_ms:.3f} ms ({cells / plain_ms / 1e6:.2f} "
+                     f"GCUPS)")
+    return "; ".join(parts), max(errs)
+
+
+def long_pipeline_phase(tp, long_dp, w, out, dev):
+    """Phase 8: the long-read pipeline on ``dev`` with the launch count reset
+    just before and every launch captured; then the same stages with the
+    kernel's plain version swapped in, on the same card.  The five outputs
+    must be byte-equal, and each plain launch equals the captured kernel
+    launch on the same inputs.  Returns (report, launches, kernel ms summed
+    over the launches, plain ms summed, max |diff|)."""
+    import torch
+
+    lines = []
+    cfg = pipeline_cfg(tp, w, out, "long_device",
+                       log=lambda msg, *a, **k: lines.append(msg))
+    captured = []
+    launch = long_dp.long_dp_rows
+
+    def capturing(*args):
+        res = launch(*args)
+        captured.append((args, res))
+        return res
+
+    stats = {}
+    long_dp.long_dp_rows = capturing
+    long_dp.LAUNCHES = 0
+    try:
+        best, n_reads, final, walls, placed = run_stages(tp, w, cfg, dev,
+                                                         stats)
+    finally:
+        long_dp.long_dp_rows = launch
+    launches = long_dp.LAUNCHES
+    if not [x for x in lines if "long-read preset map-ont" in x]:
+        raise AssertionError(f"map-ont preset not picked: {lines}")
+    if launches == 0 or stats["device_dp"] == 0:
+        raise AssertionError(f"the pipeline never launched the long DP "
+                             f"kernel (launches {launches}, stats {stats})")
+    if not final:
+        raise AssertionError("no variant called: the workload is broken")
+    names = {p.qname for p in placed}
+    if names & set(w.junk) or not w.junk:
+        raise AssertionError(f"junk reads mapped: {names & set(w.junk)}")
+
+    # the same stages with the plain version on the card; each of its
+    # launches is held against the kernel's on the same inputs
+    plain_runs = []
+
+    def plain_capturing(*args):
+        (k_args, k_res) = captured[len(plain_runs)]
+        if not (all(torch.equal(a, b) for a, b in zip(args[:3], k_args[:3]))
+                and args[3:] == k_args[3:]):
+            raise AssertionError("the plain run's launch inputs differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = long_dp.long_dp_rows_reference(*args)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        plain_runs.append((ms, same_rows(k_res, res, "a main-path launch")))
+        return res
+
+    pcfg, pstats = pipeline_cfg(tp, w, out, "long_plain"), {}
+    long_dp.long_dp_rows = plain_capturing
+    try:
+        t1 = time.perf_counter()
+        pbest, *_ = run_stages(tp, w, pcfg, dev, pstats)
+        plain_wall = time.perf_counter() - t1
+    finally:
+        long_dp.long_dp_rows = launch
+    counts = ("items", "device_dp", "host_dp")
+    if pbest != best or len(plain_runs) != len(captured) or any(
+            pstats[k] != stats[k] for k in counts):
+        raise AssertionError(f"plain run: {pbest} {pstats} vs {best} "
+                             f"{stats}")
+    sizes = same_outputs(cfg.output, pcfg.output, "the plain-version run")
+    kernel_ms = sum(cuda_time_ms(lambda a=args: long_dp.long_dp_rows(*a), 2)
+                    for args, _ in captured)
+    plain_ms = sum(ms for ms, _ in plain_runs)
+    cells = float(sum(int((a[2][:, 0].long() * a[2][:, 2].long()).sum())
+                      for a, _ in captured))  # lq x worig per item
+    shapes = [tuple(a[0].shape) + (a[4],) for a, _ in captured]
+    report = (f"long-read pipeline on {n_reads} reads -> {best}: "
+              + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
+              + "; align split: front end {front_s:.2f}s, DP launches "
+              "{dp_s:.2f}s, D2H {d2h_s:.2f}s, host traceback "
+              "{traceback_s:.2f}s".format(**stats)
+              + f"; items {stats['items']}, device DP {stats['device_dp']}, "
+              f"host DP {stats['host_dp']}; {launches} launches, shapes "
+              f"(B, LQ, W) {shapes}, {cells / 1e9:.3f} G band cells, "
+              f"kernel {kernel_ms:.3f} ms ({cells / kernel_ms / 1e6:.1f} "
+              f"GCUPS), plain version {plain_ms:.3f} ms "
+              f"({cells / plain_ms / 1e6:.2f} GCUPS); {len(final)} variants, "
+              f"{len(placed)} reads placed, {len(w.junk)} junk unmapped; "
+              f"byte-equal to "
+              f"the plain-version run ({plain_wall:.2f}s): "
+              + ", ".join(sizes))
+    return (report, launches, kernel_ms, plain_ms,
+            max(e for _, e in plain_runs))
 
 
 def main(argv=None):
@@ -293,10 +504,10 @@ def main(argv=None):
 
     from panmap_tpu_torch import _kernels
     from panmap_tpu_torch import pipeline as tp
-    from panmap_tpu_torch.align import sw
+    from panmap_tpu_torch.align import long_dp, sw
     from panmap_tpu_torch.align.batch import native_available
     from panmap_tpu_torch.place.query_torch import TorchPlacer
-    from panmap_tpu_torch.synthetic import make_workload
+    from panmap_tpu_torch.synthetic import make_long_workload, make_workload
 
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
@@ -366,14 +577,35 @@ def main(argv=None):
         plain_m += p_ms
     n, LQ = captured[0][0].shape
     LW = captured[0][1].shape[1]
-    log(f"    SW kernel == plain version on the main path's inputs "
+    log(f"[6] SW kernel == plain version on the main path's inputs "
         f"({len(captured)} launch(es), first {n} x {LQ} x {LW}): kernel "
         f"{ms_m:.3f} ms, plain {plain_m:.3f} ms")
+    del captured
 
-    # 6. no jax anywhere
+    # 7. long-read DP kernel vs plain version, both presets
+    t0 = time.perf_counter()
+    report, long_err = long_kernel_phase(long_dp, rng, dev, 256)
+    log(f"[7] long DP kernel == plain version on 256 items (LQ 600-3000, "
+        f"W 801-2401), max |diff| {long_err}: {report}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 8. the long-read pipeline on the card, then with the plain version
+    t0 = time.perf_counter()
+    lw = make_long_workload(os.path.join(args.out, "long_reads"),
+                            seed=args.seed)
+    log(f"    long-read workload: {len(lw.idx.node_ids)} nodes, {lw.n_rows} "
+        f"index rows, {lw.n_reads} reads ({len(lw.junk)} junk); "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report, long_launches, long_ms, long_plain_ms, e = long_pipeline_phase(
+        tp, long_dp, lw, args.out, dev)
+    long_err = max(long_err, e)
+    log(f"[8] {report}; {time.perf_counter() - t0:.1f}s")
+
+    # 9. no jax anywhere
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(f"[6] jax not imported; total {time.perf_counter() - t_all:.1f}s")
+    log(f"[9] jax not imported; total {time.perf_counter() - t_all:.1f}s")
 
     log(json.dumps({"kernels": [{
         "name": "banded_sw",
@@ -385,6 +617,15 @@ def main(argv=None):
         "ms": ms_m,
         "plain_ms": plain_m,
         "shape": [n, LQ, LW],
+    }, {
+        "name": "banded_long",
+        "route": "cuda",
+        "source": "panmap_tpu_torch/csrc/banded_long.cu",
+        "replaces": "panmap_tpu/align/pallas_long.py:165",
+        "launches": long_launches,
+        "max_abs_err": long_err,
+        "ms": long_ms,
+        "plain_ms": long_plain_ms,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

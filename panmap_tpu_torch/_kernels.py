@@ -2,7 +2,8 @@
 
 nvcc compiles every source into one shared library with a plain C interface
 under panmap_tpu_torch/_build/, named by the hash of the sources, at first
-use; later uses in the same tree load the built library.  The library is
+use (one nvcc per source, all started together, then one link); later uses
+in the same tree load the built library.  The library is
 bound with ctypes: every pointer and the stream pass as c_void_p, so
 nothing is cut to 32 bits.  A failed build raises: there is no fallback.
 """
@@ -21,7 +22,7 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
@@ -64,14 +65,28 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, so)  # atomic publish: a concurrent loader sees all or none
-    build_info = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    build_info = (time.perf_counter() - t0, "".join(logs))
     return so
 
 
@@ -84,6 +99,12 @@ def lib() -> ctypes.CDLL:
             fn = handle.panmap_banded_sw
             # (q, r, qlens, out, B, LQ, LW, stream)
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = handle.panmap_banded_long
+            # (q, ref, meta, dirs, stats, B, LQ, W, lr, match, mismatch,
+            #  gap_open, gap_ext, gap_open2, gap_ext2, stream)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = handle

@@ -11,7 +11,10 @@ touch the device:
    rescue); the host engine runs only where the JAX package runs it by
    contract (place_exact returned None, --host-place, --dump-all-scores,
    --refine, --verify-scores);
- - run_alignment: TorchBatchAligner (deferred windows on the SW kernel).
+ - run_alignment: TorchBatchAligner (deferred windows on the SW kernel)
+   for short reads; for long reads (mean length >= 500, map-ont /
+   map-hifi) TorchLongReadAligner (the banded DP rows on the long-read
+   kernel), whose records _emit_records builds and writes.
 
 Genotyping always uses the host pileup tally: the device tally
 (--device-pileup on) is not ported yet.  Left out on purpose, since they
@@ -29,7 +32,10 @@ from dataclasses import replace
 import numpy as np
 
 from panmap_tpu import pipeline as host
+from panmap_tpu.align.longread import pick_preset
+from panmap_tpu.genotype.caller import PlacedRead
 from panmap_tpu.io import fastq
+from panmap_tpu.io.bam import compute_sam_flags, write_bam
 from panmap_tpu.io.panman import load_panman
 from panmap_tpu.pipeline import (  # noqa: F401  (re-exported)
     PipelineConfig,
@@ -45,8 +51,10 @@ from panmap_tpu.place.engine import (
     score_nodes,
     sketch_reads,
 )
+from panmap_tpu.sketch.cpu import reverse_complement
 
 from .align.batch import TorchBatchAligner
+from .align.longread import TorchLongReadAligner
 from .place.query_torch import TorchPlacer
 from .utils.device import as_device
 
@@ -158,8 +166,10 @@ def run_alignment(cfg: PipelineConfig, tree, best_node: str, device,
     """Align the reads to the best node's sequence, write <out>.ref.fa and
     <out>.bam; returns (ref, placed) or, with ``defer_bam``, (ref, placed,
     join_fn) with the BAM write still running on a worker thread.  A
-    ``stats`` dict receives the SW stage's counters (deferred,
-    device_scored, survivors)."""
+    ``stats`` dict receives the device stage's counters: for short reads
+    the SW stage's (deferred, device_scored, survivors), for long reads
+    (mean length >= 500) the long DP's (items, device_dp, host_dp) and its
+    stage seconds."""
     if cfg.aligner == "bwa":  # aDNA whole-read mode: all host code
         return host.run_alignment(cfg, tree, best_node, defer_bam=defer_bam,
                                   prefetch=prefetch)
@@ -176,9 +186,15 @@ def run_alignment(cfg: PipelineConfig, tree, best_node: str, device,
     t0 = time.time()
     avg_len = sum(len(s) for s in seqs) / max(len(seqs), 1)
     if avg_len >= 500:
-        raise NotImplementedError(
-            f"long reads (mean length {avg_len:.0f} >= 500) need the "
-            "long-read DP kernel, not ported yet (ROADMAP B2)")
+        # long reads: preset by mean length (mm_align.c:38-41), unpaired
+        lpre = pick_preset(avg_len)
+        cfg.log(f"[align] long-read preset {lpre.name} (avg len "
+                f"{avg_len:.0f})")
+        aligner = TorchLongReadAligner(ref, lpre, device, stats=stats)
+        alns = aligner.align_batch(seqs)
+        cfg.log(f"[align] {len(seqs)} reads in {time.time()-t0:.1f}s")
+        return _emit_records(cfg, names, seqs, quals, alns, ref, best_node,
+                             defer_bam)
     aligner = TorchBatchAligner(ref, device, log=cfg.log, stats=stats)
     res = aligner.align_batch_arrays(seqs, pre=pre, deferred_async=True)
     if res is None:
@@ -187,6 +203,79 @@ def run_alignment(cfg: PipelineConfig, tree, best_node: str, device,
     cfg.log(f"[align] {len(seqs)} reads in {time.time()-t0:.1f}s")
     return _emit_columnar(cfg, names, seqs, quals, res, paired, ref,
                           best_node, defer_bam)
+
+
+def _emit_records(cfg: PipelineConfig, names, seqs, quals, alns,
+                  ref: str, best_node: str, defer_bam: bool):
+    """BAM records and PlacedReads of single-end alignments (one per read),
+    sorted by position, and the BAM write (on a worker thread with
+    ``defer_bam``).  A copy of the unpaired half of the block at the end of
+    panmap_tpu.pipeline.run_alignment, which keeps it inline."""
+    # BAM records (conversion.cpp:390-538 conventions)
+    entries = []
+    placed = []  # for genotyping: ref-orientation bases of each record
+
+    def clip_name(name):
+        if len(name) >= 2 and name[-2] == "/" and name[-1] in "12":
+            return name[:-2]
+        return name
+
+    for i, aln in enumerate(alns):
+        if not aln.mapped:
+            continue
+        seq = seqs[i]
+        lq = len(seq)
+        q8 = (np.frombuffer(quals[i].encode(), dtype=np.uint8)
+              - 33).astype(np.uint8)
+        if aln.rev:
+            bam_seq = reverse_complement(seq)
+            bam_qual = q8[::-1].tobytes()
+        else:
+            bam_seq = seq
+            bam_qual = q8.tobytes()
+        clip5 = (lq - aln.qe) if aln.rev else aln.qs
+        clip3 = aln.qs if aln.rev else (lq - aln.qe)
+        cigar = []
+        if clip5:
+            cigar.append((clip5, "S"))
+        cigar.extend(aln.cigar)
+        if clip3:
+            cigar.append((clip3, "S"))
+        flag = compute_sam_flags(False, False, aln.rev, False, False, False)
+        entries.append(dict(qname=clip_name(names[i]), flag=flag, pos=aln.rs,
+                            mapq=aln.mapq, cigar=cigar, mtid=-1, mpos=-1,
+                            tlen=0, seq=bam_seq, qual=bam_qual))
+        # aln.cigar spans query positions [qs, qe) of the oriented read,
+        # which bam_seq / bam_qual already are
+        placed.append(PlacedRead(
+            rs=aln.rs, cigar=aln.cigar, seq=bam_seq,
+            quals=np.frombuffer(bam_qual, dtype=np.uint8).astype(np.int64),
+            qs=(lq - aln.qe) if aln.rev else aln.qs,
+            qname=clip_name(names[i]), is_proper=aln.proper_frag,
+            is_paired=False, mapq=aln.mapq, rev=aln.rev,
+            has_clip=bool(clip5 or clip3)))
+
+    order = sorted(range(len(entries)), key=lambda j: entries[j]["pos"])
+    entries = [entries[j] for j in order]
+
+    def _write():
+        write_bam(cfg.output + ".bam", best_node, len(ref), entries)
+
+    def _wrote():
+        cfg.log(f"[align] wrote {len(entries)} records to {cfg.output}.bam")
+
+    if defer_bam:
+        th = threading.Thread(target=_write, daemon=True)
+        th.start()
+
+        def join_fn():
+            th.join()
+            _wrote()
+
+        return ref, placed, join_fn
+    _write()
+    _wrote()
+    return ref, placed
 
 
 def run_genotyping(cfg: PipelineConfig, idx, ref: str, best_node: str,

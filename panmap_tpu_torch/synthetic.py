@@ -1,5 +1,7 @@
-"""A synthetic single-sample workload made from a seed: a placement index,
-a genome, and paired reads simulated from a mutated copy of it.
+"""Synthetic single-sample workloads made from a seed: a placement index,
+a genome, and reads simulated from a mutated copy of it, paired 150 bp
+reads (make_workload) or single-end Nanopore-like long reads
+(make_long_workload).
 
 The repo bundles no PanMAN file and has no PanMAN writer, so chip_smoke.py
 and the CPU tests drive the port's stage functions with this workload
@@ -53,6 +55,7 @@ class Workload:
     reads2: str
     n_reads: int
     n_rows: int
+    junk: tuple = ()  # names of reads that must come out unmapped
 
 
 def random_preorder_parents(rng, n_nodes: int) -> np.ndarray:
@@ -95,8 +98,18 @@ def make_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
     _write_fastq(r2, [n + "/2" for n in names], [r[3] for r in reads],
                  [r[4] for r in reads])
 
+    idx = _make_index(rng, [r[1] for r in reads] + [r[3] for r in reads],
+                      n_nodes, rows_lo, rows_hi, read_share, root_rows)
+    return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2=r2,
+                    n_reads=2 * n_pairs, n_rows=int(idx.node_offsets[-1]))
+
+
+def _make_index(rng, seqs, n_nodes, rows_lo, rows_hi, read_share,
+                root_rows) -> IndexArrays:
+    """The placement index: ``n_nodes`` nodes of ``rows_lo``-``rows_hi``
+    rows (the root ``root_rows``), a ``read_share`` of whose hashes come
+    from the k-min-mer sketch of ``seqs``."""
     params = IndexParams()
-    seqs = [r[1] for r in reads] + [r[3] for r in reads]
     freq = sketch_reads(seqs, params.k, params.s, params.t, params.l,
                         params.open)
     read_h = (np.unique(freq[0]) if isinstance(freq, tuple)
@@ -126,11 +139,90 @@ def make_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
     for a, b in ((0, 2), (2, 0), (1, 3), (3, 1)):
         sub[a, b] = 3e-4
     np.fill_diagonal(sub, 0.999)
-    idx = IndexArrays(
+    return IndexArrays(
         params=params, node_ids=[f"node_{i}" for i in range(n_nodes)],
         parent_index=parent, identical_to_parent=np.zeros(n_nodes, bool),
         block_ranges=np.zeros((1, 2), np.uint32), seed_hashes=hashes,
         parent_counts=pc, child_counts=cc, node_offsets=offs,
         substitution_matrix=sub.reshape(-1))
-    return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2=r2,
-                    n_reads=2 * n_pairs, n_rows=T)
+
+
+def _ont_errors(rng, codes: np.ndarray, err: float) -> np.ndarray:
+    """Per-base errors at rate ``err``: 40% substitutions, 30% deletions,
+    30% insertions after the base (tests/test_align_long.py::_mutate)."""
+    u = rng.random(len(codes))
+    sub = u < err * 0.4
+    dele = (u >= err * 0.4) & (u < err * 0.7)
+    ins = (u >= err * 0.7) & (u < err)
+    out = codes.copy()
+    out[sub] = rng.integers(0, 4, int(sub.sum()))
+    reps = np.where(dele, 0, np.where(ins, 2, 1))
+    out = np.repeat(out, reps)
+    # the second copy of an inserted base becomes a random one
+    second = np.cumsum(reps)[ins] - 1
+    out[second] = rng.integers(0, 4, len(second))
+    return out
+
+
+def make_long_workload(out_dir: str, seed: int = 0, n_reads: int = 5000,
+                       n_nodes: int = 39999, rows_lo: int = 30,
+                       rows_hi: int = 92, genome_len: int = 29903,
+                       len_lo: int = 1000, len_hi: int = 1400,
+                       err: float = 0.02, junk_share: float = 0.01,
+                       n_snp: int = 30, n_ins: int = 4, n_del: int = 4,
+                       big_del: tuple = (150, 300), read_share: float = 0.3,
+                       root_rows: int = 6000) -> Workload:
+    """A single-end long-read sample (FASTQ in ``out_dir``): Nanopore-like
+    reads of ``len_lo``-``len_hi`` bp, like the 1,200 bp tiled amplicons of
+    the Midnight protocol (Freed et al., 2020, Biology Methods and
+    Protocols), with ``err`` errors per base (40% substitutions, 30%
+    deletions, 30% insertions), half of them reverse-complemented, phred
+    Q10-Q20, and a ``junk_share`` of random reads (at least one; ``junk``
+    names them), which must come out unmapped.  The sample genome carries
+    SNPs and short indels (simulate_mutations) plus one deletion of
+    ``big_del`` bp, which reads across it align through the long-gap tier.
+    The index has make_workload's shape, its read share drawn from these
+    reads.
+
+    The default error rate, 2%, is that of current Nanopore chemistry
+    (R10.4.1).  At an R9.4.1-like 6%, the host genotyper that both packages
+    share spends ~20 minutes in its indel realignment on 5,000 reads and
+    calls no variant (PERF.md, ROADMAP C)."""
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = acgt[rng.integers(0, 4, genome_len)].tobytes().decode()
+    sample, _ = simulate_mutations(genome, n_snp, n_ins, n_del, (1, 9), pyrng)
+    d = int(rng.integers(big_del[0], big_del[1] + 1))
+    p = int(rng.integers(len(sample) // 4, 3 * len(sample) // 4))
+    sample = sample[:p] + sample[p + d:]
+    scodes = np.frombuffer(sample.encode(), np.uint8)
+    scodes = np.searchsorted(acgt, scodes).astype(np.int64)
+    lens = rng.integers(len_lo, len_hi + 1, n_reads)
+    junk = np.zeros(n_reads, bool)
+    if junk_share > 0:
+        junk[rng.choice(n_reads, max(1, round(n_reads * junk_share)),
+                        replace=False)] = True
+    names, seqs, quals = [], [], []
+    for i in range(n_reads):
+        L = int(lens[i])
+        if junk[i]:
+            codes = rng.integers(0, 4, L)
+            names.append(f"junk_{i}")
+        else:
+            s0 = int(rng.integers(0, len(scodes) - L + 1))
+            codes = _ont_errors(rng, scodes[s0 : s0 + L], err)
+            if rng.random() < 0.5:
+                codes = 3 - codes[::-1]  # reverse complement (A,C,G,T = 0-3)
+            names.append(f"read_{i}")
+        seqs.append(acgt[codes].tobytes().decode())
+        quals.append((rng.integers(10, 21, len(codes)) + 33)
+                     .astype(np.uint8).tobytes().decode())
+    os.makedirs(out_dir, exist_ok=True)
+    r1 = os.path.join(out_dir, "long_reads.fastq")
+    _write_fastq(r1, names, seqs, quals)
+    idx = _make_index(rng, seqs, n_nodes, rows_lo, rows_hi, read_share,
+                      root_rows)
+    return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2="",
+                    n_reads=n_reads, n_rows=int(idx.node_offsets[-1]),
+                    junk=tuple(n for n, j in zip(names, junk) if j))
