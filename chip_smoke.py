@@ -5,7 +5,9 @@ version, and drives the single-sample path (place -> align -> genotype ->
 consensus) on one card, for short reads at the size of the sars_20000 demo
 and for long reads at the size of a SARS-CoV-2 Nanopore run, checking every
 output byte for byte against the port's own run with the kernels' plain
-versions.
+versions; then metagenomic abundance (--meta) at the size of the
+reference's demo 2, its scores held bit-equal to the host scorer and its
+abundances to the demo's own gates.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
@@ -33,7 +35,22 @@ Phases, one line each with its time:
      equal the plain version's on the same inputs.  (The port's run on CPU
      tensors, as phase 5 does, would push ~6.6 G DP cells through the plain
      version on the CPU: minutes, so the plain version runs on the card.)
-  9. jax was never imported
+  9. the meta scorer on the card: the sample sketched, TorchMetaScorer's
+     max scores over all nodes and its snapshot over the run's own
+     overlap-coefficient candidates bit-equal to the port's --host-score
+     route (the shared native MetaScorer); host prep, upload and device
+     scoring walls, peak device memory, the top device ops of one node
+     chunk and of the EM on that snapshot (torch.profiler)
+ 10. the abundance pipeline (the port's run_meta) on the card with demo 2's
+     options: the card route taken, every haplotype named, demo 2's gate A
+     (top node = top haplotype, |p - truth| <= 0.06, non-haplotype mass
+     <= 0.25); the same run with --em-f64 (host numpy f64 over all the
+     candidates): the same output lines, names and groups, every
+     proportion within 2e-4; then pinned to the five haplotypes
+     (--em-candidates) on the card and with --em-f64: gate B, every
+     proportion within 2e-4.  Launch counts of both kernels read 0 over the meta runs: this
+     path runs neither
+ 11. jax was never imported
 
 The JAX package itself is not driven here: tests/test_torch_*.py hold the
 port against it on the CPU.
@@ -41,9 +58,12 @@ port against it on the CPU.
 The workloads (panmap_tpu_torch.synthetic) are made from --seed: 39,999
 tree nodes, ~2.42 M index rows and a 29,903 bp genome for both; 51,169 read
 pairs of 150 bp for the short-read path; 5,000 single-end ONT-like reads of
-1,000-1,400 bp for the long-read path.  The last two lines are a JSON line
-listing the kernels and the result line; any failure raises (exit code != 0)
-and prints no result.  Needs one CUDA card; exits non-zero without one.
+1,000-1,400 bp for the long-read path; for --meta five haplotypes of a
+29,903 bp genome at 0.40 / 0.25 / 0.15 / 0.12 / 0.08, 200,000 read pairs of
+150 bp and a 39,999-node meta index.  The last three lines are a JSON line
+of the meta readings, a JSON line listing the kernels and the result line;
+any failure raises (exit code != 0) and prints no result.  Needs one CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -82,9 +102,9 @@ def cuda_time_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def device_kernel_ms(fn):
+def device_kernel_ms(fn, top=3):
     """Sum of device kernel time in one fn() run (torch.profiler) and the
-    three costliest kernels."""
+    ``top`` costliest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,9 +117,9 @@ def device_kernel_ms(fn):
           and e.self_device_time_total > 0]  # kernels, not the ops above
     ev.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in ev) / 1e3
-    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}"
-                    for e in ev[:3])
-    return total, top
+    names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}"
+                      f" ms x{e.count}" for e in ev[:top])
+    return total, names
 
 
 def sw_pairs(rng, B, lq_lo, lq_hi, lw_max):
@@ -485,6 +505,195 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
             max(e for _, e in plain_runs))
 
 
+def meta_cfg(td, w, out, name, log=None, **kw):
+    """demo 2's options (tools/check_examples.sh: --em-delta-threshold
+    0.00001, the default top-oc 1000 and 5 rounds)."""
+    os.makedirs(os.path.join(out, name), exist_ok=True)
+    return td.MetaConfig(panman="synthetic", reads1=w.reads1, reads2=w.reads2,
+                         output=os.path.join(out, name, "sample"),
+                         em_delta_threshold=0.00001,
+                         log=log or (lambda *a, **k: None), **kw)
+
+
+def meta_scorer_phase(td, w, out, dev):
+    """Phase 9: TorchMetaScorer on ``dev`` against the port's --host-score
+    route (the shared native host scorer) on the same sketch: max scores
+    over every node and the snapshot over the run's candidates bit-equal.
+    Returns (report, readings)."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = meta_cfg(td, w, out, "meta_scorer")
+    t0 = time.perf_counter()
+    reads, _ = td.sketch(cfg, w.midx)
+    sketch_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer, fast = td.make_scorers(cfg, w.midx, reads, dev)
+    sync()
+    prep_s = time.perf_counter() - t0
+    if fast is None:
+        raise AssertionError(f"{len(reads)} read sets: no device scorer")
+    cand = td.rank_candidates(cfg, w.midx, scorer, fast)
+    sync()
+    t0 = time.perf_counter()
+    max_score, snap = fast.score_all(cand)
+    sync()
+    score_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+
+    hcfg = replace(cfg, host_score=True)
+    hscorer, hfast = td.make_scorers(hcfg, w.midx, reads, dev)
+    if hfast is not None or td.rank_candidates(hcfg, w.midx, hscorer,
+                                               None) != cand:
+        raise AssertionError("the --host-score route differs before scoring")
+    t0 = time.perf_counter()
+    hmax, hsnap, _ = td.score(hcfg, hscorer, None, cand)
+    oracle_s = time.perf_counter() - t0
+    if not np.array_equal(max_score, hmax):
+        bad = np.flatnonzero(max_score != hmax)[:5].tolist()
+        raise AssertionError(f"device max scores != host scorer at {bad}")
+    got = snap.cpu().numpy().astype(np.int64)
+    if not np.array_equal(got, hsnap.T.astype(np.int64)):
+        raise AssertionError("device snapshot != host scorer")
+
+    ci = fast.n_chunks // 2
+    ms = torch.zeros(len(reads), dtype=torch.int32, device=dev)
+    if cuda:
+        chunk_ms, chunk_top = device_kernel_ms(
+            lambda: fast.score_chunk(ci, ms, snap, np.asarray(cand)), top=5)
+    else:
+        chunk_ms, chunk_top = 0.0, "no device"
+    read_lens, weights = td.em_inputs(cfg, reads, max_score)
+    names = [w.midx.node_ids[n] for n in cand]
+    box = {}
+
+    def em():
+        box["res"] = td.run_em(cfg, snap, read_lens, weights, names, dev)
+
+    t0 = time.perf_counter()
+    if cuda:
+        em_ms, em_top = device_kernel_ms(em, top=5)
+    else:
+        em()
+        em_ms, em_top = 0.0, "no device"
+    em_s = time.perf_counter() - t0
+    res = box["res"]
+    readings = dict(
+        nodes=len(w.midx.node_ids), index_rows=w.n_rows, reads=w.n_reads,
+        unique_read_sets=len(reads), events=len(fast.ev_pos),
+        bitmap_rows=fast.n_rows, node_chunk=fast.NODE_CHUNK,
+        n_chunks=fast.n_chunks, slots=fast.n_slots, candidates=len(cand),
+        sketch_s=sketch_s, prep_upload_s=prep_s, score_s=score_s,
+        peak_device_mib=peak, host_scorer_s=oracle_s,
+        chunk_kernel_ms=chunk_ms, em_profiled_s=em_s,
+        em_kernel_ms=em_ms, em_steps=res.n_iterations)
+    report = (f"{w.n_reads} reads -> {len(reads)} unique read sets over "
+              f"{len(w.midx.node_ids)} nodes / {w.n_rows} index rows; "
+              f"{len(fast.ev_pos)} flip events, bitmap {fast.n_rows} x "
+              f"{fast.NODE_CHUNK} in {fast.n_chunks} chunks, {fast.n_slots} "
+              f"slots; {len(cand)} candidates; max scores and snapshot "
+              f"bit-equal to the host scorer ({oracle_s:.1f}s); sketch "
+              f"{sketch_s:.2f}s, host prep + upload {prep_s:.2f}s, device "
+              f"scoring {score_s:.3f}s, peak device memory {peak:.0f} MiB; "
+              f"chunk {ci} device kernels {chunk_ms:.2f} ms: {chunk_top}; "
+              f"EM on this snapshot (profiled) {em_s:.2f}s, "
+              f"{res.n_iterations} SQUAREM steps, device kernels "
+              f"{em_ms:.2f} ms: {em_top}")
+    return report, readings
+
+
+def abundance(path):
+    """({name: prop} over every name of a line, [(names, prop)])."""
+    out, lines = {}, []
+    with open(path) as fh:
+        for ln in fh:
+            ns, p = ln.rstrip("\n").split("\t")
+            lines.append((ns.split(","), float(p)))
+            for n in ns.split(","):
+                out[n] = float(p)
+    return out, lines
+
+
+def meta_pipeline_phase(td, w, out, dev):
+    """Phase 10: the port's run_meta on ``dev`` with demo 2's options and
+    demo 2's gates A and B.  Returns (report, readings)."""
+    truth = dict(zip(w.haplotypes, w.proportions))
+    walls = []
+
+    def run(name, **kw):
+        cfg = meta_cfg(td, w, out, name, **kw)
+        stats = {}
+        t0 = time.perf_counter()
+        if td.run_meta(cfg, midx=w.midx, device=dev, stats=stats) != 0:
+            raise AssertionError(f"run_meta ({name}) failed")
+        stats["wall_s"] = time.perf_counter() - t0
+        walls.append((name, stats))
+        return abundance(cfg.output + ".mgsr.abundance.out"), stats
+
+    (un, lines), stats = run("meta")
+    if stats["route"] != "device":
+        raise AssertionError(f"the scorer took the {stats['route']} route")
+    missing = [h for h in truth if h not in un]
+    if missing:
+        raise AssertionError(f"haplotypes not in the output: {missing}")
+    top = max(un, key=un.get)
+    spur = sum(p for names, p in lines if not set(names) & set(truth))
+    errs = {h: un[h] - truth[h] for h in truth}
+    if (top != max(truth, key=truth.get) or spur > 0.25
+            or max(abs(e) for e in errs.values()) > 0.06):
+        raise AssertionError(f"gate A: top {top}, spurious {spur:.4f}, "
+                             f"p - truth {errs}")
+    # the same run with --em-f64 (host numpy f64 over the full candidate
+    # set): every output line, its names and its groups, the same
+    (_, lines64), _ = run("meta_f64", em_f64=True)
+    a, b = (dict((frozenset(ns), p) for ns, p in ls)
+            for ls in (lines, lines64))
+    if set(a) != set(b):
+        raise AssertionError(f"f32 card vs f64 host: lines differ "
+                             f"{sorted(map(sorted, set(a) ^ set(b)))[:4]}")
+    full_drift = max(abs(a[k] - b[k]) for k in a)
+    if full_drift > 2e-4:
+        raise AssertionError(f"f32 card vs f64 host: drift {full_drift}")
+    pin = os.path.join(out, "haplotypes.txt")
+    with open(pin, "w") as fh:
+        fh.write("".join(f"{h}\n" for h in truth))
+    (r32, _), s32 = run("meta_pinned", em_candidates=pin)
+    (r64, _), s64 = run("meta_pinned_f64", em_candidates=pin, em_f64=True)
+    drift = {h: abs(r32.get(h, 0.0) - r64.get(h, 0.0)) for h in truth}
+    if s32["route"] != "device" or max(drift.values()) > 2e-4:
+        raise AssertionError(f"gate B: f32 card vs f64 host {drift}")
+    parts = []
+    for name, st in walls:
+        # the numpy f64 EM does not count its steps
+        steps = (f" ({st['em_iters']} SQUAREM steps, "
+                 f"{st['em_iters'] / max(st['em_s'], 1e-9):.0f} it/s)"
+                 if st["em_iters"] else " (numpy f64)")
+        parts.append(f"{name}: wall {st['wall_s']:.2f}s = sketch "
+                     f"{st['sketch_s']:.2f}s, events + prep "
+                     f"{st['prep_s']:.2f}s, scoring {st['score_s']:.3f}s, "
+                     f"EM {st['em_s']:.3f}s{steps} over R x M = {st['R']} "
+                     f"x {st['M']}")
+    report = (f"gate A: top {top}, |p - truth| <= "
+              f"{max(abs(e) for e in errs.values()):.4f}, non-haplotype "
+              f"mass {spur:.4f}; {len(a)} lines equal to --em-f64's, max "
+              f"|f32 card - f64 host| {full_drift:.1e}; gate B: max |f32 "
+              f"card - f64 host| {max(drift.values()):.1e}; "
+              + "; ".join(parts))
+    readings = dict(gate_a_top=top, gate_a_max_err=max(abs(e) for e in
+                                                       errs.values()),
+                    gate_a_spurious=spur, full_f64_lines=len(a),
+                    full_f64_max_drift=full_drift,
+                    gate_b_max_drift=max(drift.values()),
+                    props={h: un[h] for h in truth},
+                    runs={name: st for name, st in walls})
+    return report, readings
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -506,8 +715,10 @@ def main(argv=None):
     from panmap_tpu_torch import pipeline as tp
     from panmap_tpu_torch.align import long_dp, sw
     from panmap_tpu_torch.align.batch import native_available
+    from panmap_tpu_torch.meta import driver as td
     from panmap_tpu_torch.place.query_torch import TorchPlacer
-    from panmap_tpu_torch.synthetic import make_long_workload, make_workload
+    from panmap_tpu_torch.synthetic import (make_long_workload,
+                                            make_meta_workload, make_workload)
 
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
@@ -602,10 +813,37 @@ def main(argv=None):
     long_err = max(long_err, e)
     log(f"[8] {report}; {time.perf_counter() - t0:.1f}s")
 
-    # 9. no jax anywhere
+    # the meta workload: demo 2's shape
+    t0 = time.perf_counter()
+    mw = make_meta_workload(os.path.join(args.out, "meta_reads"),
+                            seed=args.seed)
+    log(f"    meta workload: {len(mw.midx.node_ids)} nodes, {mw.n_rows} "
+        f"index rows, {len(mw.midx.seed_hash)} seeds, {mw.n_reads} reads "
+        f"from {len(mw.haplotypes)} haplotypes at {mw.proportions}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 9. the meta scorer on the card vs the host scorer
+    t0 = time.perf_counter()
+    report, meta = meta_scorer_phase(td, mw, args.out, dev)
+    log(f"[9] {report}; {time.perf_counter() - t0:.1f}s")
+
+    # 10. the abundance pipeline on the card; neither kernel is on it
+    t0 = time.perf_counter()
+    sw.LAUNCHES = long_dp.LAUNCHES = 0
+    report, readings = meta_pipeline_phase(td, mw, args.out, dev)
+    if sw.LAUNCHES or long_dp.LAUNCHES:
+        raise AssertionError("a kernel launched on the meta path")
+    meta.update(readings)
+    log(f"[10] {report}; kernel launches on this path: banded_sw "
+        f"{sw.LAUNCHES}, banded_long {long_dp.LAUNCHES}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 11. no jax anywhere
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(f"[9] jax not imported; total {time.perf_counter() - t_all:.1f}s")
+    log(f"[11] jax not imported; total {time.perf_counter() - t_all:.1f}s")
+
+    log(json.dumps({"meta": meta}))
 
     log(json.dumps({"kernels": [{
         "name": "banded_sw",

@@ -1,12 +1,16 @@
 """panmap_tpu_torch: the PyTorch/CUDA port of panmap_tpu.
 
-The single-sample path (index -> place -> align -> genotype -> consensus) on
-one NVIDIA GPU.  The device-bound layers live here:
+The single-sample path (index -> place -> align -> genotype -> consensus)
+and metagenomic abundance (--meta) on one NVIDIA GPU.  The device-bound
+layers live here:
 
  - place/    the placement scorer as torch ops (TorchPlacer), with the exact
              f64 host rescue carried over from panmap_tpu.place.query_tpu;
- - align/    the banded Smith-Waterman scoring kernel (csrc/banded_sw.cu)
-             and the short-read aligner stage that feeds it;
+ - align/    the banded Smith-Waterman scoring kernel (csrc/banded_sw.cu),
+             the long-read DP kernel (csrc/banded_long.cu) and the aligner
+             stages that feed them;
+ - meta/     the presence-bitmap read scorer (TorchMetaScorer), the SQUAREM
+             EM and the --meta driver, as torch ops;
  - pipeline  the stage runner; __main__ the CLI.
 
 Every host layer (index, io, native, sketch, the f64 placement engine, the

@@ -1,4 +1,5 @@
-"""panmap_tpu_torch CLI: the single-sample pipeline on one GPU.
+"""panmap_tpu_torch CLI: the single-sample pipeline and metagenomic
+abundance (--meta) on one GPU.
 
     python -m panmap_tpu_torch [options] <panman> [reads1] [reads2]
 
@@ -17,8 +18,11 @@ from panmap_tpu.pipeline import PipelineConfig, default_prefix
 
 
 def _unsupported(args):
-    if args.meta:
-        return "--meta is not ported yet (ROADMAP: meta scorer B5, EM B6)"
+    if args.meta and args.filter_and_assign:
+        return ("--meta --filter-and-assign is not ported yet (ROADMAP A: "
+                "filter-and-assign)")
+    if args.meta and args.batch_file:
+        return "--meta --batch is not ported yet (ROADMAP A: batch mode)"
     if args.dist_coordinator or args.dist_nprocs or args.dist_pid >= 0:
         return "--dist-* is not ported yet (ROADMAP B7)"
     return None
@@ -48,6 +52,8 @@ def main(argv=None):
 
     log = Output(quiet=args.quiet, verbose=args.verbose, plain=args.plain,
                  no_progress=args.no_progress)
+    if args.meta:
+        return _run_meta(args, out, log)
     cfg = PipelineConfig(
         panman=args.panman, reads1=args.reads1, reads2=args.reads2, output=out,
         index_path=args.index, index_out=args.index_out,
@@ -82,6 +88,52 @@ def main(argv=None):
     from .pipeline import run_pipeline
 
     return run_pipeline(cfg) or 0
+
+
+def _run_meta(args, out, log):
+    """--meta: MetaConfig field for field as panmap_tpu.__main__ builds it,
+    run by the port's run_meta."""
+    from .meta.driver import MetaConfig, run_meta
+
+    mcfg = MetaConfig(
+        panman=args.panman, reads1=args.reads1, reads2=args.reads2,
+        output=out, k=args.kmer, s=args.syncmer, t=args.offset, l=args.lmer,
+        open=args.open,
+        index_path=args.index, index_out=args.index_out,
+        em_convergence_threshold=args.em_convergence_threshold,
+        em_delta_threshold=args.em_delta_threshold,
+        em_maximum_rounds=args.em_maximum_rounds,
+        em_maximum_iterations=args.em_maximum_iterations,
+        top_oc=args.top_oc, dust=args.dust, discard=args.discard,
+        mask_reads=args.mask_reads, mask_seeds=args.mask_seeds,
+        mask_reads_rf=args.mask_reads_rf, mask_seeds_rf=args.mask_seeds_rf,
+        amplicon_depth=args.amplicon_depth,
+        mask_read_ends=args.mask_read_ends,
+        pseudochain=args.pseudochain,
+        filter_and_assign=args.filter_and_assign,
+        taxonomy_path=args.taxonomic_metadata,
+        taxonomic_rank=args.taxonomic_rank,
+        max_taxon_number=args.maximum_taxon_number,
+        ambiguous_score_threshold=args.ambiguous_score_threshold,
+        ambiguous_score_threshold_ratio=args.ambiguous_score_threshold_ratio,
+        breadth_ratio=args.breadth_ratio,
+        jplace=args.jplace,
+        align_reads=args.align_reads,
+        min_num_align=args.min_num_align,
+        leaves_only=args.leaves_only,
+        em_candidates=args.em_candidates,
+        write_ocranks=args.write_ocranks,
+        write_read_scores_unfiltered=args.write_meta_read_scores_unfiltered,
+        write_read_scores_filtered=args.write_meta_read_scores_filtered,
+        batch_size=args.batch_size,
+        host_score=args.host_score,
+        em_f64=args.em_f64,
+        mesh=args.mesh,
+        threads=args.threads,
+        stop=args.stop,
+        log=log,
+    )
+    return run_meta(mcfg)
 
 
 if __name__ == "__main__":

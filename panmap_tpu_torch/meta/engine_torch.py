@@ -1,0 +1,221 @@
+"""Metagenomic read scoring over a dense presence bitmap on one GPU
+(counterpart of panmap_tpu/meta/engine_tpu.py::TpuMetaScorer, B5).
+
+A read's max-parsimony score at node n is max(fwd, rev), the number of its
+seedmer occurrences whose (hash, orientation) is present at n in the same
+(fwd) or the opposite (rev) orientation.  Presence-flip events
+(panmap_tpu.meta.events.presence_events) densify, one node chunk at a time,
+into a bitmap P[(orientation, uid), node] by a scatter-add and a prefix sum
+(presence_chunk); a read block's scores over the chunk are row gathers of P
+at its slotted seedmer keys summed over the slots (score_block).
+
+The host prep is carried over from TpuMetaScorer.__init__ (its module
+imports jax at the top, so it cannot be imported here); what existed only
+for the TPU link or XLA recompiles is left out: the mesh, the pow2 padding
+of events, bitmap rows, read rows and slots, the chunk groups with their
+3 GB cap, the 512-wide candidate tiles and col_map, and the u32
+bit-packing of P (it cut
+TPU HBM gather traffic; PERF.md holds the H100 profile that would decide
+on it).  All device arithmetic is integer, so every result is bit-equal to
+TpuMetaScorer's and to the host scorer MetaScorer.score_all.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from panmap_tpu.meta.events import (
+    overlap_coefficients_from_events,
+    presence_events,
+)
+
+
+def presence_chunk(carry: torch.Tensor, ev_key: torch.Tensor,
+                   ev_col: torch.Tensor, ev_delta: torch.Tensor, n_rows: int,
+                   C: int) -> torch.Tensor:
+    """Presence bitmap uint8 0/1 [n_rows, C] of one node chunk: the chunk's
+    flip events (row key, column in the chunk, +-1) scatter-added into an
+    int32 plane, the carry-in state (int32 [n_rows], flips before the
+    chunk) added at column 0, then a prefix sum along the nodes, > 0.
+    Integer scatter-adds are exact in any order."""
+    flat = torch.zeros(n_rows * C, dtype=torch.int32, device=carry.device)
+    flat.index_add_(0, ev_key * C + ev_col, ev_delta)
+    M = flat.view(n_rows, C)
+    M[:, 0] += carry
+    return (torch.cumsum(M, dim=1, dtype=torch.int32) > 0).view(torch.uint8)
+
+
+def score_block(P: torch.Tensor, fwd_key: torch.Tensor, rev_key: torch.Tensor,
+                n_valid: int | None = None):
+    """Scores of a read block over a chunk: (max over the first ``n_valid``
+    columns [B], sc = max(fwd, rev) [B, C]), uint8 while a read has fewer
+    than 256 slots, else int32.  ``fwd_key`` / ``rev_key`` int [B, S] are
+    the reads' bitmap rows per seedmer slot (empty slots point at the
+    all-zero dummy row).  Materialises one orientation's gathered
+    [B, S, C] uint8 at a time and sums it in its own type: a cast of it to
+    int32 first took 60% of a chunk's device time (PERF.md)."""
+    B, S = fwd_key.shape
+    C = P.shape[1]
+    acc = torch.uint8 if S < 256 else torch.int32
+    fwd = P.index_select(0, fwd_key.reshape(-1)).view(B, S, C).sum(
+        dim=1, dtype=acc)
+    rev = P.index_select(0, rev_key.reshape(-1)).view(B, S, C).sum(
+        dim=1, dtype=acc)
+    sc = torch.maximum(fwd, rev)
+    n = C if n_valid is None else n_valid
+    return sc[:, :n].amax(dim=1), sc
+
+
+class TorchMetaScorer:
+    """score_all twin of MetaScorer over chunked presence bitmaps on
+    ``device``: the event and key tensors are uploaded once, then one loop
+    over node chunks x read blocks."""
+
+    NODE_CHUNK = 2048
+    READ_CHUNK = 4096
+
+    def __init__(self, midx, reads: list, device):
+        self.midx = midx
+        self.reads = reads
+        self.device = torch.device(device)
+        self.n_nodes = len(midx.node_ids)
+
+        all_h = (np.concatenate([r.hashes for r in reads])
+                 if reads else np.empty(0, np.uint64))
+        uniq_h = np.unique(all_h)
+        # only hashes that exist somewhere in the INDEX can ever flip
+        # presence; error seedmers get no P row and map to the dummy row
+        idx_h = np.unique(np.asarray(midx.seed_hash, dtype=np.uint64))
+        if len(idx_h) and len(uniq_h):
+            ii = np.minimum(np.searchsorted(idx_h, uniq_h), len(idx_h) - 1)
+            self.read_hashes = uniq_h[idx_h[ii] == uniq_h]
+        else:
+            self.read_hashes = uniq_h[:0]
+        self.ev = presence_events(midx, self.read_hashes)
+        U = len(self.read_hashes)
+        self.U = U
+        # P row layout: [fwd uid rows | rev uid rows | one zero dummy row]
+        self.n_rows = 2 * U + 1
+        # TpuMetaScorer's int32 rule for its flat event scatter (on its
+        # pow2-padded rows): chunks stay 2,048 nodes wide unless the plane
+        # would reach 2^31 cells
+        C = self.NODE_CHUNK
+        while C > 32 and self.n_rows * C >= (1 << 31):
+            C //= 2
+        self.NODE_CHUNK = C
+
+        # flip events sorted by preorder position, keyed by (orient, uid)
+        ev = self.ev
+        key = (np.where(ev["ev_rev"], U, 0)
+               + ev["ev_uid"]).astype(np.int64)
+        order = np.argsort(ev["ev_node"], kind="stable")
+        self._evp_pos = ev["ev_node"][order].astype(np.int64)
+        self._evp_key = key[order]
+        self._evp_delta = ev["ev_delta"][order].astype(np.int32)
+        self.ev_pos = self._evp_pos
+
+        # each read gets S key slots (S = its most seedmers); scoring is a
+        # row gather of P plus a sum over the slot axis
+        R = len(reads)
+        nseeds = np.array([len(r.hashes) for r in reads], dtype=np.int64)
+        if U:
+            occ_pos = np.minimum(np.searchsorted(self.read_hashes, all_h),
+                                 U - 1)
+            occ_found = self.read_hashes[occ_pos] == all_h
+        else:
+            occ_pos = np.zeros(len(all_h), dtype=np.int64)
+            occ_found = np.zeros(len(all_h), dtype=bool)
+        occ_uid = occ_pos.astype(np.int64)
+        occ_rev = (np.concatenate([np.asarray(r.revs, dtype=bool)
+                                   for r in reads])
+                   if reads else np.empty(0, bool))
+        S = max(int(nseeds.max()) if R else 1, 1)
+        self.n_slots = S
+        dummy = self.n_rows - 1  # the all-zero P row
+        fwd_sl = np.full((R, S), dummy, dtype=np.int32)
+        rev_sl = np.full((R, S), dummy, dtype=np.int32)
+        row_of = np.repeat(np.arange(R, dtype=np.int64), nseeds)
+        slot_of = (np.arange(len(occ_uid), dtype=np.int64)
+                   - np.repeat(np.cumsum(nseeds) - nseeds, nseeds))
+        fwd_sl[row_of, slot_of] = np.where(
+            ~occ_found, dummy,
+            np.where(occ_rev, U + occ_uid, occ_uid))
+        rev_sl[row_of, slot_of] = np.where(
+            ~occ_found, dummy,
+            np.where(occ_rev, occ_uid, U + occ_uid))
+        self.fwd_keys = fwd_sl
+        self.rev_keys = rev_sl
+
+        # per-node-chunk carry-in presence state (flips with pos < chunk lo)
+        self._chunk_lo = list(range(0, self.n_nodes + 1, C))
+        self._carries = []
+        state = np.zeros(self.n_rows, dtype=np.int32)
+        prev = 0
+        for lo in self._chunk_lo:
+            cut = np.searchsorted(self._evp_pos, lo)
+            np.add.at(state, self._evp_key[prev:cut],
+                      self._evp_delta[prev:cut])
+            prev = cut
+            self._carries.append(state.copy())
+        self._ev_bounds = np.searchsorted(self._evp_pos,
+                                          self._chunk_lo + [self.n_nodes + 1])
+        ev_col = self._evp_pos - np.repeat(
+            np.asarray(self._chunk_lo, np.int64), np.diff(self._ev_bounds))
+        self.n_chunks = len(self._chunk_lo)
+        # scores are <= S: int16 snapshots unless a read has more seedmers
+        self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
+
+        # ONE upload of everything the chunk loop reads
+        dev = self.device
+        self._ev_key_t = torch.from_numpy(self._evp_key).to(dev)
+        self._ev_col_t = torch.from_numpy(ev_col).to(dev)
+        self._ev_del_t = torch.from_numpy(self._evp_delta).to(dev)
+        self._carries_t = torch.from_numpy(np.stack(self._carries)).to(dev)
+        self._fwd_t = torch.from_numpy(fwd_sl).to(dev)
+        self._rev_t = torch.from_numpy(rev_sl).to(dev)
+
+    def overlap_coefficients(self) -> np.ndarray:
+        """OC per dfs index as prefix sums of the presence events."""
+        return overlap_coefficients_from_events(self.ev, self.n_nodes)
+
+    def presence(self, ci: int) -> torch.Tensor:
+        """Presence bitmap of node chunk ci: uint8 [n_rows, NODE_CHUNK]."""
+        a, b = self._ev_bounds[ci], self._ev_bounds[ci + 1]
+        return presence_chunk(self._carries_t[ci], self._ev_key_t[a:b],
+                              self._ev_col_t[a:b], self._ev_del_t[a:b],
+                              self.n_rows, self.NODE_CHUNK)
+
+    def score_chunk(self, ci: int, ms: torch.Tensor, snap: torch.Tensor,
+                    cand: np.ndarray):
+        """Fold node chunk ci into the running max ``ms`` int32 [R] and the
+        candidate snapshots ``snap`` [R, len(cand)] (in place)."""
+        C, B = self.NODE_CHUNK, self.READ_CHUNK
+        lo = self._chunk_lo[ci]
+        n_valid = min(C, self.n_nodes - lo)
+        if n_valid <= 0:  # the chunk at n_nodes holds no node
+            return
+        P = self.presence(ci)
+        sel = np.flatnonzero((cand >= lo) & (cand < lo + n_valid))
+        sel_t = torch.from_numpy(sel).to(self.device)
+        cols_t = torch.from_numpy(cand[sel] - lo).to(self.device)
+        for r0 in range(0, len(self.reads), B):
+            r1 = min(r0 + B, len(self.reads))
+            m, sc = score_block(P, self._fwd_t[r0:r1], self._rev_t[r0:r1],
+                                n_valid)
+            torch.maximum(ms[r0:r1], m, out=ms[r0:r1])
+            if len(sel):
+                snap[r0:r1, sel_t] = sc[:, cols_t].to(snap.dtype)
+
+    def score_all(self, candidate_nodes: list):
+        """(max_score int32 [R] on the host, snap [R, len(candidates)] on
+        the device, in candidate order; int16, or int32 past 32,767 seedmer
+        slots)."""
+        R = len(self.reads)
+        cand = np.asarray(candidate_nodes, dtype=np.int64)
+        ms = torch.zeros(R, dtype=torch.int32, device=self.device)
+        snap = torch.zeros((R, len(cand)), dtype=self.snap_dtype,
+                           device=self.device)
+        for ci in range(self.n_chunks):
+            self.score_chunk(ci, ms, snap, cand)
+        return ms.cpu().numpy(), snap

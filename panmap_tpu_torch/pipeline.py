@@ -63,8 +63,8 @@ def check_supported(cfg: PipelineConfig):
     """Raise NotImplementedError for options whose device path this port
     does not have yet (each names its ROADMAP item)."""
     if cfg.batch_file:
-        raise NotImplementedError("--batch is not ported yet (ROADMAP: batch "
-                                  "mode, B3 batched_prefix_acc)")
+        raise NotImplementedError("--batch is not ported yet (ROADMAP A: "
+                                  "batch mode)")
     if cfg.mesh > 1:
         raise NotImplementedError("--mesh > 1 is not ported yet (ROADMAP B7)")
     if cfg.profile_dir:

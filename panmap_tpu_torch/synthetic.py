@@ -1,7 +1,8 @@
-"""Synthetic single-sample workloads made from a seed: a placement index,
-a genome, and reads simulated from a mutated copy of it, paired 150 bp
-reads (make_workload) or single-end Nanopore-like long reads
-(make_long_workload).
+"""Synthetic workloads made from a seed: a placement index, a genome, and
+reads simulated from a mutated copy of it, paired 150 bp reads
+(make_workload) or single-end Nanopore-like long reads
+(make_long_workload); and a metagenomic mixture of five haplotypes over a
+meta index (make_meta_workload, see its docstring).
 
 The repo bundles no PanMAN file and has no PanMAN writer, so chip_smoke.py
 and the CPU tests drive the port's stage functions with this workload
@@ -33,8 +34,17 @@ from dataclasses import dataclass
 import numpy as np
 
 from panmap_tpu.index.builder import IndexArrays, IndexParams
+from panmap_tpu.meta.engine import sketch_meta_reads_full
+from panmap_tpu.meta.index import MetaIndexArrays
 from panmap_tpu.place.engine import sketch_reads
-from panmap_tpu.simulate import ERROR_MODELS, generate_reads, simulate_mutations
+from panmap_tpu.simulate import (
+    ERROR_MODELS,
+    INSERT_MEAN,
+    INSERT_SD,
+    READ_LEN,
+    generate_reads,
+    simulate_mutations,
+)
 
 
 class GenomeTree:
@@ -66,6 +76,23 @@ def random_preorder_parents(rng, n_nodes: int) -> np.ndarray:
     picks = rng.random(n_nodes)
     for i in range(1, n_nodes):
         d = int(picks[i] * len(chain))
+        parent[i] = chain[d]
+        del chain[d + 1:]
+        chain.append(i)
+    return parent
+
+
+def deep_preorder_parents(rng, n_nodes: int) -> np.ndarray:
+    """Like random_preorder_parents, but each new node hangs off the node
+    geometric(0.5) - 1 steps above the chain's end, so the depth is a
+    critical random walk: ~180 on average and ~20,000 leaves at 39,999
+    nodes, the shape of a binary tree of 20,000 genomes (the uniform pick
+    gives depth <= 9 there)."""
+    parent = np.zeros(n_nodes, np.uint32)
+    chain = [0]
+    ups = rng.geometric(0.5, n_nodes) - 1
+    for i in range(1, n_nodes):
+        d = max(len(chain) - 1 - int(ups[i]), 0)
         parent[i] = chain[d]
         del chain[d + 1:]
         chain.append(i)
@@ -226,3 +253,218 @@ def make_long_workload(out_dir: str, seed: int = 0, n_reads: int = 5000,
     return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2="",
                     n_reads=n_reads, n_rows=int(idx.node_offsets[-1]),
                     junk=tuple(n for n, j in zip(names, junk) if j))
+
+
+@dataclass
+class MetaWorkload:
+    midx: MetaIndexArrays
+    reads1: str  # FASTQ paths
+    reads2: str
+    haplotypes: tuple  # node ids of the haplotype leaves
+    proportions: tuple  # their true proportions, in the same order
+    n_reads: int
+    n_rows: int  # delta rows of the meta index
+
+
+def _haplotype(genome: str, rows):
+    """(haplotype, coords) rebuilt from simulate_mutations' VCF rows, with
+    the genome coordinate each haplotype base came from (an inserted base
+    takes its anchor's)."""
+    parts, coords = [], []
+    prev = 0
+    for pos1, ref, alt in rows:
+        a = pos1 - 1
+        parts += [genome[prev:a], alt]
+        coords += [np.arange(prev, a), np.full(len(alt), a)]
+        prev = a + len(ref)
+    parts.append(genome[prev:])
+    coords.append(np.arange(prev, len(genome)))
+    return "".join(parts), np.concatenate(coords).astype(np.int64)
+
+
+def _seed_records(seq: str, coords: np.ndarray, p: IndexParams):
+    """(pos, hash, rev, end) of a sequence's k-min-mers, sketched as reads
+    are (sketch_meta_reads_full), placed in genome coordinates."""
+    reads, _, _ = sketch_meta_reads_full([seq], p.k, p.s, p.t, p.l, p.open)
+    r = reads[0]
+    return (coords[r.qbeg], r.hashes.astype(np.uint64),
+            np.asarray(r.revs, bool), coords[r.qend])
+
+
+def _simulate_pairs(rng, haps: list, props, n_pairs: int, err: float):
+    """Paired 150 bp reads as simulate.generate_reads makes them (normal
+    insert size, uniform start, substitutions at rate ``err``, phred ~Q37,
+    Q12-25 on errors), drawn from ``haps`` by ``props``, vectorised.
+    Returns (r1 codes, r2 codes, r1 quals, r2 quals) as uint8 arrays."""
+    codes = [np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                             np.frombuffer(h.encode(), np.uint8))
+             for h in haps]
+    lens = np.array([len(c) for c in codes])
+    offs = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    allc = np.concatenate(codes).astype(np.uint8)
+    hap = rng.choice(len(haps), n_pairs, p=np.asarray(props) / sum(props))
+    ins = rng.normal(INSERT_MEAN, INSERT_SD, n_pairs).astype(np.int64)
+    ins = np.minimum(np.maximum(ins, READ_LEN + 10), lens[hap])
+    start = (rng.random(n_pairs) * (lens[hap] - ins + 1)).astype(np.int64)
+    col = np.arange(READ_LEN)
+    base = (offs[hap] + start)[:, None]
+    r1 = allc[base + col]
+    r2 = 3 - allc[base + ins[:, None] - READ_LEN + col][:, ::-1]
+    out = []
+    for r in (r1, r2):
+        bad = rng.random(r.shape) < err
+        r = np.where(bad, (r + rng.integers(1, 4, r.shape)) % 4, r)
+        q = np.clip(rng.normal(37, 3, r.shape).astype(np.int64), 25, 40)
+        q = np.where(bad, rng.integers(12, 26, r.shape), q)
+        out.append((r.astype(np.uint8), (q + 33).astype(np.uint8)))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def _write_fastq_codes(path: str, mate: int, codes, quals):
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    n, L = codes.shape
+    seqs = acgt[codes].tobytes().decode()
+    qs = quals.tobytes().decode()
+    with open(path, "w") as fh:
+        fh.write("".join(f"@sim_{i}/{mate}\n{seqs[i * L:(i + 1) * L]}\n+\n"
+                         f"{qs[i * L:(i + 1) * L]}\n" for i in range(n)))
+
+
+META_PROPORTIONS = (0.40, 0.25, 0.15, 0.12, 0.08)
+
+
+def make_meta_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
+                       genome_len: int = 29903,
+                       n_pairs: int = 200000) -> MetaWorkload:
+    """A metagenomic sample of the shape of the reference's demo 2 (the
+    sars_20000 PanMAN and a 200,000-pair mixture of five SARS-CoV-2
+    haplotypes): a random ``genome_len`` bp genome; five haplotypes at
+    META_PROPORTIONS, each mutated from the genome (simulate_mutations: 30
+    SNPs, 2 insertions and 2 deletions of 1-9 bp); ``n_pairs`` read pairs
+    of 150 bp with NovaSeq-like errors, each pair drawn from a haplotype by
+    its proportion, written as R1/R2 FASTQ into ``out_dir``.
+
+    The meta index (MetaIndexArrays, IndexParams() k 19, s 8, l 3) lies on
+    a random DFS-preorder tree of ``n_nodes`` nodes whose depth is a
+    critical random walk (deep_preorder_parents):
+     - the root adds the genome's k-min-mers, sketched as reads are;
+     - each haplotype sits at its own leaf (node id ``hap_<j>``), whose
+       delta is its k-min-mer set against the state at its parent;
+     - every other node deletes 1-9 present genome seeds and adds 1-9 new
+       random ones (drawn apart), about 10 rows a node, consistent along
+       every root-to-leaf path.
+    Independent deletion and addition counts on a deep tree give the
+    overlap coefficients enough distinct values that demo 2's top 1,000
+    shared ranks hold ~1,500 nodes, not the whole tree.
+    Seed positions are genome coordinates; the degap fields hold no gap or
+    block event, so save_meta_index / load_meta_index round-trip it."""
+    props = META_PROPORTIONS
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    p = IndexParams()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = acgt[rng.integers(0, 4, genome_len)].tobytes().decode()
+    haps, recs = [], [_seed_records(genome, np.arange(genome_len), p)]
+    for _ in props:
+        mutated, rows = simulate_mutations(genome, 30, 2, 2, (1, 9), pyrng)
+        hap, coords = _haplotype(genome, rows)
+        assert hap == mutated
+        haps.append(hap)
+        recs.append(_seed_records(hap, coords, p))
+
+    r1, r2, q1, q2 = _simulate_pairs(rng, haps, props, n_pairs,
+                                     ERROR_MODELS["NovaSeq"])
+    os.makedirs(out_dir, exist_ok=True)
+    path1 = os.path.join(out_dir, "meta_R1.fastq")
+    path2 = os.path.join(out_dir, "meta_R2.fastq")
+    _write_fastq_codes(path1, 1, r1, q1)
+    _write_fastq_codes(path2, 2, r2, q2)
+
+    parent = deep_preorder_parents(rng, n_nodes)
+    has_child = np.zeros(n_nodes, bool)
+    has_child[parent[1:]] = True
+    leaves = np.flatnonzero(~has_child[1:]) + 1
+    hap_nodes = rng.choice(leaves, len(props), replace=False)
+    hap_of = {int(n): j for j, n in enumerate(hap_nodes)}
+    n_dels, n_adds = rng.integers(1, 10, (2, n_nodes))
+    n_dels[0] = n_dels[hap_nodes] = 0
+    n_adds[0] = n_adds[hap_nodes] = 0
+    n_new = int(n_adds.sum())
+    recs.append((rng.integers(0, genome_len, n_new),
+                 rng.integers(1, 1 << 62, n_new).astype(np.uint64),
+                 rng.random(n_new) < 0.5, np.zeros(n_new, np.int64)))
+    recs[-1] = recs[-1][:3] + (recs[-1][0] + 40,)
+
+    # intern (pos, hash, rev) records into the seed table
+    pos, hsh, rev, end = (np.concatenate(x) for x in zip(*recs))
+    order = np.lexsort((rev, hsh, pos))
+    sp, sh, sr = pos[order], hsh[order], rev[order]
+    first = np.concatenate(([True], (sp[1:] != sp[:-1]) | (sh[1:] != sh[:-1])
+                            | (sr[1:] != sr[:-1])))
+    rid = np.empty(len(pos), np.int64)
+    rid[order] = np.cumsum(first) - 1
+    bounds = np.cumsum([0] + [len(r[0]) for r in recs])
+    ids = [rid[bounds[i]:bounds[i + 1]] for i in range(len(recs))]
+    base_ids, hap_ids, new_ids = ids[0], ids[1:-1], ids[-1]
+    new_off = np.concatenate(([0], np.cumsum(n_adds)))
+
+    # one preorder pass with an explicit root-to-node path keeps every
+    # deletion on a present seed and every addition on an absent one
+    count = np.zeros(int(first.sum()), np.int64)
+    picks = rng.integers(0, len(base_ids), (n_nodes, 36))
+    node_rows, path = [], []
+    for i in range(n_nodes):
+        while path and path[-1][0] != parent[i]:
+            _, dels, adds = path.pop()
+            count[dels] += 1
+            count[adds] -= 1
+        if i == 0:
+            dels, adds = np.empty(0, np.int64), np.unique(base_ids)
+        elif i in hap_of:
+            cur = np.flatnonzero(count > 0)
+            want = np.unique(hap_ids[hap_of[i]])
+            dels = np.setdiff1d(cur, want)
+            adds = np.setdiff1d(want, cur)
+        else:
+            got = []
+            for b in picks[i]:
+                s = int(base_ids[b])
+                if len(got) == n_dels[i]:
+                    break
+                if count[s] > 0 and s not in got:
+                    got.append(s)
+            dels = np.array(got, np.int64)
+            adds = new_ids[new_off[i]:new_off[i + 1]]
+        count[dels] -= 1
+        count[adds] += 1
+        path.append((i, dels, adds))
+        node_rows.append((dels, adds))
+
+    delta_seed = np.concatenate([np.concatenate(x) for x in node_rows])
+    delta_is_del = np.concatenate([np.repeat([True, False],
+                                             [len(d), len(a)])
+                                   for d, a in node_rows])
+    offsets = np.zeros(n_nodes + 1, np.int64)
+    offsets[1:] = np.cumsum([len(d) + len(a) for d, a in node_rows])
+    node_ids = [f"node_{i}" for i in range(n_nodes)]
+    for n, j in hap_of.items():
+        node_ids[n] = f"hap_{j}"
+    seed_end = np.empty(int(first.sum()), np.int64)
+    seed_end[rid[::-1]] = end[::-1]  # the first occurrence's end
+    midx = MetaIndexArrays(
+        params=p, node_ids=node_ids, parent_index=parent,
+        seed_hash=sh[first], seed_rev=sr[first], seed_pos=sp[first],
+        delta_seed=delta_seed.astype(np.int32), delta_is_del=delta_is_del,
+        node_offsets=offsets, seed_end=seed_end,
+        gev_offsets=np.zeros(n_nodes + 1, np.int64),
+        gev_pos=np.empty(0, np.int64), gev_nongap=np.empty(0, bool),
+        bev_offsets=np.zeros(n_nodes + 1, np.int64),
+        bev_block=np.empty(0, np.int32), bev_code=np.empty(0, np.int8),
+        block_lo=np.zeros(1, np.int64),
+        block_hi=np.full(1, genome_len - 1, np.int64),
+        nongap0=np.packbits(np.ones(genome_len, np.uint8), bitorder="little"),
+        n_scalar=genome_len)
+    return MetaWorkload(midx=midx, reads1=path1, reads2=path2,
+                        haplotypes=tuple(f"hap_{j}" for j in range(len(props))),
+                        proportions=tuple(props), n_reads=2 * n_pairs,
+                        n_rows=int(offsets[-1]))

@@ -8,8 +8,8 @@ The JAX side runs as its tests run on the CPU: TpuPlacer on the JAX CPU
 backend with mesh = 1, the Pallas SW kernel in interpret mode, the host
 pileup tally.  The port runs on torch CPU tensors, where the SW wrapper uses
 its plain version.  A subprocess run shows the port never loads jax (this
-process has it loaded by the conftest), CIGAR-overflow realignment and
-the long-read path included.
+process has it loaded by the conftest), CIGAR-overflow realignment, the
+long-read path and --meta abundance included.
 """
 
 import filecmp
@@ -140,11 +140,23 @@ res, best, _ = tp.run_placement(lcfg, lw.idx, cpu)
 ref, placed = tp.run_alignment(lcfg, lw.tree, best, cpu, stats=stats)
 final = tp.run_genotyping(lcfg, lw.idx, ref, best, placed)
 tp.run_consensus(lcfg, ref, best, final)
+
+# --meta abundance on the device route (>= 2,000 unique read sets)
+from panmap_tpu_torch.meta import driver as md
+from panmap_tpu_torch.synthetic import make_meta_workload
+
+mw = make_meta_workload(os.path.join(out, "meta_reads"), seed=2, n_nodes=200,
+                        genome_len=5000, n_pairs=1300)
+mcfg = md.MetaConfig(panman="synthetic", reads1=mw.reads1, reads2=mw.reads2,
+                     output=os.path.join(out, "meta"), log=lambda *a, **k: None)
+mstats = {}
+md.run_meta(mcfg, midx=mw.midx, device=cpu, stats=mstats)
 print(json.dumps({"jax": "jax" in sys.modules,
                   "outputs": sorted(os.listdir(out)),
                   "long_outputs": sorted(os.listdir(lout)),
                   "long_device_dp": stats["device_dp"],
-                  "oversized": len(arrays["extra_cigars"])}))
+                  "oversized": len(arrays["extra_cigars"]),
+                  "meta_route": mstats["route"]}))
 """
 
 
@@ -164,11 +176,14 @@ def test_port_never_imports_jax(tmp_path):
     for ext in OUTPUTS:
         assert f"sample.{ext}" in got["outputs"], ext
         assert f"sample.{ext}" in got["long_outputs"], ext
+    assert got["meta_route"] == "device"
+    assert "meta.mgsr.abundance.out" in got["outputs"]
 
 
 @pytest.mark.parametrize("argv", [
-    ["--meta"], ["--batch", "manifest.txt"], ["--mesh", "2"],
-    ["--device-pileup", "on"], ["--dist-nprocs", "2"]])
+    ["--meta", "--filter-and-assign"], ["--batch", "manifest.txt"],
+    ["--mesh", "2"], ["--device-pileup", "on"], ["--dist-nprocs", "2"],
+    ["--meta", "--batch", "manifest.txt"]])
 def test_cli_refuses_unported_options(tmp_path, argv):
     with pytest.raises(NotImplementedError):
         torch_main([str(tmp_path / "x.panman"), "r1.fq", *argv])

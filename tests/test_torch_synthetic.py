@@ -3,14 +3,20 @@ port with (panmap_tpu_torch.synthetic), made from a seed.
 
  - make_workload's output for a seed is pinned: factoring its index code
    out for make_long_workload changed no byte of it;
- - make_long_workload has the shape its docstring states.
+ - make_long_workload and make_meta_workload have the shapes their
+   docstrings state.
 """
 
 import hashlib
 
 import numpy as np
 
-from panmap_tpu_torch.synthetic import make_long_workload, make_workload
+from panmap_tpu.meta.index import load_meta_index, save_meta_index
+from panmap_tpu_torch.synthetic import (
+    make_long_workload,
+    make_meta_workload,
+    make_workload,
+)
 
 
 def test_make_workload_output_is_pinned(tmp_path):
@@ -65,3 +71,54 @@ def test_long_workload_shape(tmp_path):
     n_rev = sum(r and not f for f, r in strands)
     assert n_fwd + n_rev == 297  # every read but the junk
     assert 100 < n_fwd < 200
+
+
+def test_meta_workload_shape(tmp_path):
+    """Reads, haplotype leaves, consistent deltas, a save/load round trip."""
+    w = make_meta_workload(str(tmp_path), seed=2, n_nodes=400,
+                           genome_len=6000, n_pairs=3000)
+    m = w.midx
+    n1, s1, q1 = _fastq(w.reads1)
+    n2, s2, _ = _fastq(w.reads2)
+    assert len(n1) == len(n2) == 3000 == w.n_reads // 2
+    assert n1[7] == "@sim_7/1" and n2[7] == "@sim_7/2"
+    assert {len(s) for s in s1 + s2} == {150} and set("".join(s1)) == set(
+        "ACGT")
+    q = np.frombuffer("".join(q1).encode(), np.uint8) - 33
+    assert q.min() >= 12 and q.max() <= 40
+    assert w.proportions == (0.40, 0.25, 0.15, 0.12, 0.08)
+    # each haplotype is a leaf; every other node holds ~10 delta rows
+    parent = m.parent_index.astype(np.int64)
+    has_child = np.zeros(len(parent), bool)
+    has_child[parent[1:]] = True
+    hap = [m.node_ids.index(h) for h in w.haplotypes]
+    assert not has_child[hap].any() and len(set(hap)) == 5
+    rows = np.diff(m.node_offsets)
+    other = np.setdiff1d(np.arange(1, len(parent)), hap)
+    assert 8 < rows[other].mean() < 12 and rows[0] > 1000
+    assert w.n_rows == m.node_offsets[-1] == len(m.delta_seed)
+    # replayed in preorder, a deletion always hits a present seed and an
+    # addition an absent one
+    count = np.zeros(len(m.seed_hash), np.int64)
+    path = []
+    for i in range(len(parent)):
+        while path and path[-1][0] != parent[i]:
+            _, sl, dl = path.pop()
+            count[sl] += np.where(dl, 1, -1)
+        sl = m.delta_seed[m.node_offsets[i]:m.node_offsets[i + 1]]
+        dl = m.delta_is_del[m.node_offsets[i]:m.node_offsets[i + 1]]
+        assert (count[sl[dl]] == 1).all() and (count[sl[~dl]] == 0).all()
+        count[sl] += np.where(dl, -1, 1)
+        path.append((i, sl, dl))
+    # the tree is deep (a critical random walk), not bushy
+    depth = np.zeros(len(parent), np.int64)
+    for i in range(1, len(parent)):
+        depth[i] = depth[parent[i]] + 1
+    assert depth.max() > 15
+    path = str(tmp_path / "x.ptmidx.npz")
+    save_meta_index(path, m)
+    back = load_meta_index(path)
+    for f in ("parent_index", "seed_hash", "seed_rev", "seed_pos", "seed_end",
+              "delta_seed", "delta_is_del", "node_offsets", "nongap0"):
+        assert np.array_equal(getattr(back, f), getattr(m, f)), f
+    assert back.node_ids == m.node_ids
