@@ -12,9 +12,11 @@ abundances to the demo's own gates.
     python3 chip_smoke.py [--seed N] [--out DIR]
 
 Phases, one line each with its time:
-  1. card, versions, native host library
-  2. nvcc build of panmap_tpu_torch/csrc/*.cu (one nvcc per source, in
-     parallel)
+  1. card, versions
+  2. both builds, started together: the port's native host library (g++,
+     panmap_tpu_torch/native/panmap_native.cpp) and nvcc over
+     panmap_tpu_torch/csrc/*.cu (one nvcc per source, in parallel), both
+     into panmap_tpu_torch/_build/
   3. banded-SW kernel vs its plain version (>= 4,096 pairs, bit-equal)
   4. placement on the full index: TorchPlacer.place_exact on the card, on
      the sparse and the full-stream route, each equal to TorchPlacer on the
@@ -27,7 +29,12 @@ Phases, one line each with its time:
   7. long-read DP kernel vs its plain version on the card: 256 random
      items (LQ 600-3,000, W 801-2,401; substitutions, short indels, long
      deletions and insertions, z-drop stops), half map-ont, half map-hifi;
-     direction bytes and row stats bit-equal
+     then launches that cross every edge of the kernel's design (W no
+     multiple of 8 or 16, W < 256, W in (1,024, 2,401] and above 8,192 (where
+     a thread takes 16 columns), up to the widest band the kernel takes,
+     bands that start before the reference or run past its end, a query of
+     one base, both presets); direction bytes and row stats bit-equal over
+     whole arrays
   8. the long-read pipeline (map-ont) on the card on 5,000 reads, launch
      count reset just before, then the same stages on the same card with
      the kernel's plain version swapped in; the five outputs must be
@@ -35,6 +42,8 @@ Phases, one line each with its time:
      equal the plain version's on the same inputs.  (The port's run on CPU
      tensors, as phase 5 does, would push ~6.6 G DP cells through the plain
      version on the CPU: minutes, so the plain version runs on the card.)
+     The kernel's time over these launches is printed beside its bound and
+     the time of the kernel it replaced (PERF.md).
   9. the meta scorer on the card: the sample sketched, TorchMetaScorer's
      max scores over all nodes and its snapshot over the run's own
      overlap-coefficient candidates bit-equal to the port's --host-score
@@ -44,13 +53,16 @@ Phases, one line each with its time:
  10. the abundance pipeline (the port's run_meta) on the card with demo 2's
      options: the card route taken, every haplotype named, demo 2's gate A
      (top node = top haplotype, |p - truth| <= 0.06, non-haplotype mass
-     <= 0.25); the same run with --em-f64 (host numpy f64 over all the
-     candidates): the same output lines, names and groups, every
-     proportion within 2e-4; then pinned to the five haplotypes
+     <= 0.25); the unpinned run on the first 20,000 read pairs of the
+     same sample on the card and with --em-f64 (host numpy f64 over all
+     the candidates, above the 5 M cells at which the routing would pick
+     the card's EM): the same output lines, names and groups, every
+     proportion within 2e-4; then, at full width, pinned to the five haplotypes
      (--em-candidates) on the card and with --em-f64: gate B, every
      proportion within 2e-4.  Launch counts of both kernels read 0 over the meta runs: this
      path runs neither
- 11. jax was never imported
+ 11. neither jax nor any module of panmap_tpu was imported; the count of
+     the port's modules that were
 
 The JAX package itself is not driven here: tests/test_torch_*.py hold the
 port against it on the CPU.
@@ -120,6 +132,36 @@ def device_kernel_ms(fn, top=3):
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}"
                       f" ms x{e.count}" for e in ev[:top])
     return total, names
+
+
+# The least time the card could take (from the published
+# peaks of one H100 SXM).  int32 operations outside the tensor cores run on
+# 64 lanes an SM where float32 has 128 lanes doing 2 flops per FMA, so the
+# int32 rate is a quarter of the 67 TFLOP/s float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# int32 operations a DP cell needs at the least.  csrc/banded_sw.cu: E, F
+# and H of the affine recurrence (10), the query-end bonus and the running
+# (max, position) with its tie order (10).  csrc/banded_long.cu: the
+# recurrences of F, F2, diag, base, E, E2 and H (15), the source choice in
+# the traceback's priority order (12), the four run flags (8), the byte (5),
+# the row max and the band's edge (5).
+SW_OPS_PER_CELL = 20
+LONG_OPS_PER_CELL = 45
+# csrc/banded_long.cu before its redesign, on this workload's launches
+# (PERF.md: NVIDIA H100 80GB HBM3, 700.00 W)
+LONG_MS_BEFORE_REDESIGN = 119.66
+
+
+def bound_ms(cells, ops_per_cell, tensors):
+    """(bound ms, "bytes" or "operations"): the larger of the cells'
+    operations over the card's int32 rate and the tensors' bytes (each input
+    read once, each output written once) over its memory rate."""
+    by_ops = cells * ops_per_cell / INT32_OPS_PER_S * 1e3
+    by_bytes = sum(t.numel() * t.element_size()
+                   for t in tensors) / HBM_BYTES_PER_S * 1e3
+    return ((by_ops, "operations") if by_ops >= by_bytes
+            else (by_bytes, "bytes"))
 
 
 def sw_pairs(rng, B, lq_lo, lq_hi, lw_max):
@@ -381,6 +423,57 @@ def same_rows(got, want, what):
     return err
 
 
+def long_edge_launches(rng, lr):
+    """[(B, LQ, W, meta int32 [B, 3])]: launches that cross every edge of
+    the long DP kernel's design: W no multiple of 8 or 16, W below 256 (less
+    than a warp of threads in use), W in (1,024, 2,401] (more than four
+    warps) and above 8,192 (16 columns a thread; aligned rows, unaligned
+    rows and the widest band the kernel takes), bands that start before
+    the reference (dlo < 0) and run past its end (dlo + lq + W > lr), a
+    query of one base, ragged lengths and widths."""
+    import numpy as np
+
+    out = []
+    for LQ, W in [(1, 1), (1, 9), (40, 7), (90, 33), (300, 255), (200, 256),
+                  (64, 1001), (50, 1025), (120, 1100), (30, 2401),
+                  (24, 8200), (20, 8209), (8, 16384)]:
+        B = 6
+        meta = np.stack([rng.integers(0, LQ + 1, B),
+                         rng.integers(-300, lr, B),
+                         rng.integers(1, W + 1, B)], 1).astype(np.int32)
+        meta[0] = (LQ, 100, W)  # a full item
+        meta[1] = (LQ, -(W // 2) - 3, W)  # starts before the reference
+        meta[2] = (LQ, lr - W // 2 - LQ // 2, W)  # runs past its end
+        meta[3] = (1, 57, W)  # a query of one base
+        out.append((B, LQ, W, meta))
+    return out
+
+
+def long_edge_phase(long_dp, rng, dev):
+    """The kernel vs its plain version on long_edge_launches, both presets.
+    Returns (launches compared, max |diff|)."""
+    import numpy as np
+    import torch
+
+    from panmap_tpu_torch.align.longread import MAP_HIFI, MAP_ONT
+
+    lr = 3000
+    ref = torch.from_numpy(rng.integers(0, 5, lr).astype(np.int8)).to(dev)
+    n, err = 0, 0
+    for pre in (MAP_ONT, MAP_HIFI):
+        for B, LQ, W, meta in long_edge_launches(rng, lr):
+            q = torch.from_numpy(rng.integers(0, 5, (B, LQ)).astype(
+                np.int8)).to(dev)
+            mt = torch.from_numpy(meta).to(dev)
+            want = long_dp.long_dp_rows_reference(q, ref, mt, pre, W)
+            got = long_dp.long_dp_rows(q, ref, mt, pre, W)
+            torch.cuda.synchronize()
+            err = max(err, same_rows(got, want,
+                                     f"{pre.name} B {B} LQ {LQ} W {W}"))
+            n += 1
+    return n, err
+
+
 def long_kernel_phase(long_dp, rng, dev, n_items):
     """Phase 7: the kernel vs its plain version on random items, half
     map-ont, half map-hifi.  Returns (report, max |diff|)."""
@@ -414,8 +507,9 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
     just before and every launch captured; then the same stages with the
     kernel's plain version swapped in, on the same card.  The five outputs
     must be byte-equal, and each plain launch equals the captured kernel
-    launch on the same inputs.  Returns (report, launches, kernel ms summed
-    over the launches, plain ms summed, max |diff|)."""
+    launch on the same inputs.
+    Returns (report, launches, kernel ms summed over the launches, plain ms
+    summed, max |diff|, band cells, (bound ms, what bounds it))."""
     import torch
 
     lines = []
@@ -485,6 +579,8 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
     plain_ms = sum(ms for ms, _ in plain_runs)
     cells = float(sum(int((a[2][:, 0].long() * a[2][:, 2].long()).sum())
                       for a, _ in captured))  # lq x worig per item
+    bound = bound_ms(cells, LONG_OPS_PER_CELL,
+                     [t for a, r in captured for t in (*a[:3], *r)])
     shapes = [tuple(a[0].shape) + (a[4],) for a, _ in captured]
     report = (f"long-read pipeline on {n_reads} reads -> {best}: "
               + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
@@ -495,21 +591,37 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
               f"host DP {stats['host_dp']}; {launches} launches, shapes "
               f"(B, LQ, W) {shapes}, {cells / 1e9:.3f} G band cells, "
               f"kernel {kernel_ms:.3f} ms ({cells / kernel_ms / 1e6:.1f} "
-              f"GCUPS), plain version {plain_ms:.3f} ms "
+              f"GCUPS; bound {bound[0]:.3f} ms by {bound[1]} at "
+              f"{LONG_OPS_PER_CELL} int32 ops a cell; before the redesign "
+              f"{LONG_MS_BEFORE_REDESIGN} ms), plain version "
+              f"{plain_ms:.3f} ms "
               f"({cells / plain_ms / 1e6:.2f} GCUPS); {len(final)} variants, "
               f"{len(placed)} reads placed, {len(w.junk)} junk unmapped; "
               f"byte-equal to "
               f"the plain-version run ({plain_wall:.2f}s): "
               + ", ".join(sizes))
     return (report, launches, kernel_ms, plain_ms,
-            max(e for _, e in plain_runs))
+            max(e for _, e in plain_runs), cells, bound)
 
 
-def meta_cfg(td, w, out, name, log=None, **kw):
+def head_fastq(src, dst, n_records):
+    """The first ``n_records`` records of a FASTQ file, as a new file."""
+    with open(src) as fin, open(dst, "w") as fout:
+        for _ in range(4 * n_records):
+            line = fin.readline()
+            if not line:
+                break
+            fout.write(line)
+    return dst
+
+
+def meta_cfg(td, w, out, name, log=None, reads=None, **kw):
     """demo 2's options (tools/check_examples.sh: --em-delta-threshold
-    0.00001, the default top-oc 1000 and 5 rounds)."""
+    0.00001, the default top-oc 1000 and 5 rounds); ``reads``: a
+    (reads1, reads2) pair in place of the workload's."""
     os.makedirs(os.path.join(out, name), exist_ok=True)
-    return td.MetaConfig(panman="synthetic", reads1=w.reads1, reads2=w.reads2,
+    reads1, reads2 = reads or (w.reads1, w.reads2)
+    return td.MetaConfig(panman="synthetic", reads1=reads1, reads2=reads2,
                          output=os.path.join(out, name, "sample"),
                          em_delta_threshold=0.00001,
                          log=log or (lambda *a, **k: None), **kw)
@@ -619,9 +731,10 @@ def abundance(path):
     return out, lines
 
 
-def meta_pipeline_phase(td, w, out, dev):
+def meta_pipeline_phase(td, w, out, dev, f64_pairs=20000):
     """Phase 10: the port's run_meta on ``dev`` with demo 2's options and
-    demo 2's gates A and B.  Returns (report, readings)."""
+    demo 2's gates A and B; the unpinned card run against --em-f64 on the
+    sample's first ``f64_pairs`` read pairs.  Returns (report, readings)."""
     truth = dict(zip(w.haplotypes, w.proportions))
     walls = []
 
@@ -648,11 +761,21 @@ def meta_pipeline_phase(td, w, out, dev):
             or max(abs(e) for e in errs.values()) > 0.06):
         raise AssertionError(f"gate A: top {top}, spurious {spur:.4f}, "
                              f"p - truth {errs}")
-    # the same run with --em-f64 (host numpy f64 over the full candidate
-    # set): every output line, its names and its groups, the same
-    (_, lines64), _ = run("meta_f64", em_f64=True)
+    # the unpinned run against --em-f64 (host numpy f64 over the full
+    # candidate set) on the sample's first read pairs: every output line,
+    # its names and its groups, the same.  The numpy f64 EM over the whole
+    # sample's 181 M cells took 239 s (NVIDIA H100 80GB HBM3 host, PERF.md).
+    sub = tuple(head_fastq(src, os.path.join(out, f"head_{n}.fastq"),
+                           f64_pairs)
+                for n, src in ((1, w.reads1), (2, w.reads2)))
+    (_, lines32), sub32 = run("meta_head", reads=sub)
+    (_, lines64), sub64 = run("meta_head_f64", reads=sub, em_f64=True)
+    if (sub32["route"] != "device" or (sub32["R"], sub32["M"]) != (
+            sub64["R"], sub64["M"]) or sub64["R"] * sub64["M"] <= 5_000_000):
+        raise AssertionError(f"the --em-f64 comparison must run the card "
+                             f"route above 5 M cells: {sub32} {sub64}")
     a, b = (dict((frozenset(ns), p) for ns, p in ls)
-            for ls in (lines, lines64))
+            for ls in (lines32, lines64))
     if set(a) != set(b):
         raise AssertionError(f"f32 card vs f64 host: lines differ "
                              f"{sorted(map(sorted, set(a) ^ set(b)))[:4]}")
@@ -680,7 +803,8 @@ def meta_pipeline_phase(td, w, out, dev):
                      f"x {st['M']}")
     report = (f"gate A: top {top}, |p - truth| <= "
               f"{max(abs(e) for e in errs.values()):.4f}, non-haplotype "
-              f"mass {spur:.4f}; {len(a)} lines equal to --em-f64's, max "
+              f"mass {spur:.4f}; on the first {f64_pairs} pairs {len(a)} "
+              f"lines equal to --em-f64's, max "
               f"|f32 card - f64 host| {full_drift:.1e}; gate B: max |f32 "
               f"card - f64 host| {max(drift.values()):.1e}; "
               + "; ".join(parts))
@@ -692,6 +816,34 @@ def meta_pipeline_phase(td, w, out, dev):
                     props={h: un[h] for h in truth},
                     runs={name: st for name, st in walls})
     return report, readings
+
+
+def long_phases(args, tp, long_dp, rng, dev):
+    """Phases 7 and 8.  Returns (launches on the main path, kernel ms over
+    them, plain ms, max |diff|, band cells, (bound ms, what bounds it))."""
+    from panmap_tpu_torch.synthetic import make_long_workload
+
+    t0 = time.perf_counter()
+    report, long_err = long_kernel_phase(long_dp, rng, dev, 256)
+    n_edge, e = long_edge_phase(long_dp, rng, dev)
+    long_err = max(long_err, e)
+    log(f"[7] long DP kernel == plain version on 256 items (LQ 600-3000, "
+        f"W 801-2401), max |diff| {long_err}: {report}; and on {n_edge} "
+        f"edge launches (W 1-16384, off both ends of the reference, a query "
+        f"of one base, both presets); "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    lw = make_long_workload(os.path.join(args.out, "long_reads"),
+                            seed=args.seed)
+    log(f"    long-read workload: {len(lw.idx.node_ids)} nodes, {lw.n_rows} "
+        f"index rows, {lw.n_reads} reads ({len(lw.junk)} junk); "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    (report, launches, ms, plain_ms, e, cells,
+     bound) = long_pipeline_phase(tp, long_dp, lw, args.out, dev)
+    log(f"[8] {report}; {time.perf_counter() - t0:.1f}s")
+    return launches, ms, plain_ms, max(long_err, e), cells, bound
 
 
 def main(argv=None):
@@ -711,14 +863,14 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from panmap_tpu_torch import _kernels
+    import threading
+
+    from panmap_tpu_torch import _kernels, native
     from panmap_tpu_torch import pipeline as tp
     from panmap_tpu_torch.align import long_dp, sw
-    from panmap_tpu_torch.align.batch import native_available
     from panmap_tpu_torch.meta import driver as td
     from panmap_tpu_torch.place.query_torch import TorchPlacer
-    from panmap_tpu_torch.synthetic import (make_long_workload,
-                                            make_meta_workload, make_workload)
+    from panmap_tpu_torch.synthetic import make_meta_workload, make_workload
 
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
@@ -728,19 +880,28 @@ def main(argv=None):
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"[1] python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}  "
-        f"native host library: {native_available()}")
-    if not native_available():
-        raise RuntimeError("panmap_tpu's native host library did not build; "
-                           "without it no window is deferred to the kernel")
+        f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
 
-    # 2. kernel build
+    # 2. both builds, started together: the native host library (g++) on a
+    # thread, the kernels (nvcc) here
     t0 = time.perf_counter()
+    host_build = threading.Thread(target=native.get_lib)
+    host_build.start()
     _kernels.lib()
+    nvcc_s = time.perf_counter() - t0
+    host_build.join()
+    if native.get_lib() is None:
+        raise RuntimeError("the port's native host library did not build; "
+                           "without it no window is deferred to the kernel:\n"
+                           f"{native.build_error}")
     built = _kernels.build_info
     ptxas = ([ln.strip() for ln in built[1].splitlines() if "Used" in ln
               or "spill" in ln] if built else ["already built"])
-    log(f"[2] nvcc build {time.perf_counter() - t0:.2f}s: "
+    hb = native.build_info
+    log(f"[2] native host library (g++, panmap_tpu_torch/native/"
+        f"panmap_native.cpp -> _build/): "
+        + (f"{hb[0]:.2f}s" if hb else "already built")
+        + f"; nvcc build {nvcc_s:.2f}s; both {time.perf_counter() - t0:.2f}s: "
         + " | ".join(ptxas))
 
     # 3. SW kernel vs plain version, bulk shapes
@@ -786,32 +947,24 @@ def main(argv=None):
         errs.append(e)
         ms_m += k_ms
         plain_m += p_ms
+    # query length x window columns per pair; every tensor read or written
+    sw_cells = float(sum(int(lm.sum()) * rm.shape[1]
+                         for _, rm, lm, _ in captured))
+    sw_bound = bound_ms(sw_cells, SW_OPS_PER_CELL,
+                        [t for launch in captured for t in launch])
     n, LQ = captured[0][0].shape
     LW = captured[0][1].shape[1]
     log(f"[6] SW kernel == plain version on the main path's inputs "
         f"({len(captured)} launch(es), first {n} x {LQ} x {LW}): kernel "
-        f"{ms_m:.3f} ms, plain {plain_m:.3f} ms")
+        f"{ms_m:.3f} ms, plain {plain_m:.3f} ms; {sw_cells / 1e6:.1f} M "
+        f"cells, bound {sw_bound[0]:.3f} ms by {sw_bound[1]} at "
+        f"{SW_OPS_PER_CELL} int32 ops a cell; no PyTorch call computes a "
+        f"banded affine DP (library_ms null)")
     del captured
 
-    # 7. long-read DP kernel vs plain version, both presets
-    t0 = time.perf_counter()
-    report, long_err = long_kernel_phase(long_dp, rng, dev, 256)
-    log(f"[7] long DP kernel == plain version on 256 items (LQ 600-3000, "
-        f"W 801-2401), max |diff| {long_err}: {report}; "
-        f"{time.perf_counter() - t0:.1f}s")
-
-    # 8. the long-read pipeline on the card, then with the plain version
-    t0 = time.perf_counter()
-    lw = make_long_workload(os.path.join(args.out, "long_reads"),
-                            seed=args.seed)
-    log(f"    long-read workload: {len(lw.idx.node_ids)} nodes, {lw.n_rows} "
-        f"index rows, {lw.n_reads} reads ({len(lw.junk)} junk); "
-        f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    report, long_launches, long_ms, long_plain_ms, e = long_pipeline_phase(
-        tp, long_dp, lw, args.out, dev)
-    long_err = max(long_err, e)
-    log(f"[8] {report}; {time.perf_counter() - t0:.1f}s")
+    # 7, 8. the long-read DP kernel and the long-read pipeline
+    (long_launches, long_ms, long_plain_ms, long_err, long_cells,
+     long_bound) = long_phases(args, tp, long_dp, rng, dev)
 
     # the meta workload: demo 2's shape
     t0 = time.perf_counter()
@@ -838,10 +991,16 @@ def main(argv=None):
         f"{sw.LAUNCHES}, banded_long {long_dp.LAUNCHES}; "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # 11. no jax anywhere
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    log(f"[11] jax not imported; total {time.perf_counter() - t_all:.1f}s")
+    # 11. no jax and nothing of the JAX package anywhere
+    foreign = sorted(k for k in sys.modules
+                     if k in ("jax", "jaxlib", "panmap_tpu")
+                     or k.startswith(("jax.", "jaxlib.", "panmap_tpu.")))
+    if foreign:
+        raise AssertionError(f"imported: {foreign[:8]}")
+    n_port = sum(k == "panmap_tpu_torch" or k.startswith("panmap_tpu_torch.")
+                 for k in sys.modules)
+    log(f"[11] neither jax nor panmap_tpu imported; {n_port} modules of "
+        f"panmap_tpu_torch loaded; total {time.perf_counter() - t_all:.1f}s")
 
     log(json.dumps({"meta": meta}))
 
@@ -854,6 +1013,11 @@ def main(argv=None):
         "max_abs_err": max(errs),
         "ms": ms_m,
         "plain_ms": plain_m,
+        "bound_ms": sw_bound[0],
+        "bound_by": sw_bound[1],
+        "library_ms": None,
+        "cells": sw_cells,
+        "ops_per_cell": SW_OPS_PER_CELL,
         "shape": [n, LQ, LW],
     }, {
         "name": "banded_long",
@@ -864,6 +1028,11 @@ def main(argv=None):
         "max_abs_err": long_err,
         "ms": long_ms,
         "plain_ms": long_plain_ms,
+        "bound_ms": long_bound[0],
+        "bound_by": long_bound[1],
+        "library_ms": None,
+        "cells": long_cells,
+        "ops_per_cell": LONG_OPS_PER_CELL,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,11 @@ read directly by the kernel (no per-row band matrix), meta int32 [B, 3] =
 (lq, dlo, worig) with worig = dhi - dlo + 1, and outputs dirs int8
 [B, LQ, W] and stats int32 [B, LQ, 2].  Padded cells (rows >= lq, columns
 >= worig) are 0, stats rows >= lq (0, 0), so the kernel and the plain
-version agree over the whole arrays.
+version agree over the whole arrays.  Codes are 0-3 and 4 (N / pad).
+``long_dp_batch`` rounds a launch's W up to a multiple of 16, so every row
+of dirs starts on a 16-byte boundary and a thread's 8 direction bytes leave
+as one store; ``long_dp_rows`` takes any width (an unaligned one stores
+bytes).
 """
 
 from __future__ import annotations
@@ -25,10 +29,14 @@ import time
 import numpy as np
 import torch
 
-from panmap_tpu.align.longread import banded_dp_shifted
+from .longread import banded_dp_shifted
 
 NEG = -(1 << 28)
-MAX_W = 16384  # band columns the kernel's shared memory holds (12 B each)
+MAX_W = 16384  # band columns of one block: 1,024 threads x 16 columns
+# the kernel packs a row's (max, argmax) as (h << 14) | (16383 - c), and
+# h <= match * LQ
+MAX_PACKED_H = 1 << 17
+W_ALIGN = 16  # long_dp_batch launches at a multiple of this width
 # items whose Pallas-padded direction matrix would exceed this run the host
 # DP, as in panmap_tpu/align/pallas_long.py::long_dp_device_batch
 MAX_ITEM_CELLS = 32 << 20
@@ -38,7 +46,7 @@ DIRS_CAP = 1 << 30  # direction bytes of one launch
 LAUNCHES = 0
 
 
-def _check(q, ref, meta, width):
+def _check(q, ref, meta, pre, width):
     if q.dtype != torch.int8 or ref.dtype != torch.int8:
         raise TypeError(f"q and ref must be int8, got {q.dtype}, {ref.dtype}")
     if meta.dtype != torch.int32:
@@ -57,6 +65,9 @@ def _check(q, ref, meta, width):
     if q.shape[1] == 0 or not 0 < width <= MAX_W:
         raise ValueError(f"need 0 < LQ and 0 < width <= {MAX_W}, got "
                          f"LQ {q.shape[1]}, width {width}")
+    if pre.match <= 0 or pre.match * q.shape[1] >= MAX_PACKED_H:
+        raise ValueError(f"need 0 < match * LQ < {MAX_PACKED_H}, got match "
+                         f"{pre.match}, LQ {q.shape[1]}")
 
 
 def long_dp_rows(q, ref, meta, pre, width: int):
@@ -64,7 +75,7 @@ def long_dp_rows(q, ref, meta, pre, width: int):
     ``pre`` is a LongPreset (its scoring constants), ``width`` the batch's
     band width W >= every worig.  Returns (dirs, stats) on q's device."""
     global LAUNCHES
-    _check(q, ref, meta, width)
+    _check(q, ref, meta, pre, width)
     if q.device.type == "cpu":
         return long_dp_rows_reference(q, ref, meta, pre, width)
     if q.device.type != "cuda":
@@ -180,10 +191,12 @@ def _round_up(x, m):
 def _on_host(q, dlo, dhi) -> bool:
     """Items the device path does not take: over the JAX package's cell cap
     (its padded (LQ, W) rule, so the same items route the same way), or
-    wider than the kernel's shared memory holds."""
+    wider than a block of the kernel covers.  (The presets' bands are at
+    least 1,001 wide, so under the cell cap a query has at most 32,768
+    bases and match * LQ stays below MAX_PACKED_H.)"""
     W = dhi - dlo + 1
     cells = max(_round_up(len(q), 512), 512) * _round_up(W, 128)
-    return cells > MAX_ITEM_CELLS or W > MAX_W
+    return cells > MAX_ITEM_CELLS or _round_up(W, W_ALIGN) > MAX_W
 
 
 def long_dp_batch(items: list, ref_codes: np.ndarray, pre, device,
@@ -220,7 +233,7 @@ def long_dp_batch(items: list, ref_codes: np.ndarray, pre, device,
     chunks = []  # ([item], LQ, W)
     for n in dev_ids:
         q, dlo, dhi = items[n]
-        lq, w = max(len(q), 1), dhi - dlo + 1
+        lq, w = max(len(q), 1), _round_up(dhi - dlo + 1, W_ALIGN)
         if chunks:
             ids, LQ, W = chunks[-1]
             LQ, W = max(LQ, lq), max(W, w)

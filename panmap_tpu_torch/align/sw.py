@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from panmap_tpu.align.core import END_BONUS, GAP_EXT, GAP_OPEN, MATCH, MISMATCH
+from .core import END_BONUS, GAP_EXT, GAP_OPEN, MATCH, MISMATCH
 
 MAX_LW = 2048  # window columns one kernel block covers (256 threads x 8)
 NEG = -(1 << 28)

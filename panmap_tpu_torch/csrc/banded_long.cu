@@ -6,47 +6,74 @@
 // band) it computes every DP row of align/longread.py::banded_dp_shifted:
 // row i covers the 0-based reference positions [dlo + i, dlo + i + worig),
 // with minimap2's two gap tiers (-O q,q2 -E e,e2) as the insertion lanes F
-// and F2 carried across rows and the deletion lanes E and E2 as two in-row
-// prefix-max scans.  Per cell it writes a direction byte: bits 0-2 the H
-// source in the host traceback's priority order (0 zero, 1 diag, 2 E, 3 E2,
-// 4 F, 5 F2, 1 as the last resort), bits 3/4/5/6 the E/E2/F/F2 "run
-// continues" flags.  Per row it writes (max H, first column of the max).
-// The host replays the z-drop rule over the row stats and walks the bytes
-// for the CIGAR (align/long_dp.py::_finish_one).
+// and F2 carried across rows and the deletion lanes E and E2 along the row.
+// Per cell it writes a direction byte: bits 0-2 the H source in the host
+// traceback's priority order (0 zero, 1 diag, 2 E, 3 E2, 4 F, 5 F2, 1 as the
+// last resort), bits 3/4/5/6 the E/E2/F/F2 "run continues" flags.  Per row it
+// writes (max H, first column of the max).  The host replays the z-drop rule
+// over the row stats and walks the bytes for the CIGAR
+// (align/long_dp.py::_finish_one).  Padded cells (rows >= lq, columns >=
+// worig) are written as 0, stats rows >= lq as (0, 0).  The scoring constants
+// are arguments, so one build serves both presets.
 //
-// Unlike the Pallas kernel it reads the reference directly at 0-based index
-// c + dlo + i (code 4 outside [0, lr)), so there is no host-built band
-// matrix, and it reads the query code by index, so there is no one-hot
-// matrix product.  Nothing is padded to 512 rows or 128 columns: each item
-// keeps its own (lq, dlo, worig) and the batch is laid out at its largest
-// LQ and W.  Padded cells (rows >= lq, columns >= worig) are written as 0,
-// stats rows >= lq as (0, 0).  The scoring constants are arguments, so one
-// build serves both presets.
+// What bounds it: int32 operations.  The recurrences, the source choice,
+// the four run flags, the byte and the row max come to ~45 int32 operations a
+// cell at the least (this source issues ~50) against one byte of output, so
+// at the card's int32 rate the operations cost ~10x what the bytes cost at
+// its memory rate.  The rows of an item are serial (row i needs row i - 1),
+// so the parallelism is the band (~1,000 columns) times the items of a
+// launch (600-800), and what a row costs beyond its cells' arithmetic is
+// communication: the deletion lanes are a prefix scan along the row, the
+// insertion lanes read the right neighbour of the row above, and the row's
+// (max, argmax) is a reduction.
 //
-// Design: one thread block per item, looping over the rows.  The previous
-// row's H, F and F2 live in dynamic shared memory (12 * W bytes).  The
-// threads cover the band in chunks of blockDim.x consecutive columns, one
-// column each, so the direction bytes of a warp go out as one coalesced
-// store.  E and E2 use the Pallas kernel's prefix-max identity
-// E[c] = max_{m<c}(base[m] + m*ext) - open - (c-1)*ext: a warp-shuffle
-// inclusive scan of both tiers in one pass, one shared word per warp whose
-// values every warp then scans again by shuffles, and a carry across
-// chunks.  The E "continues" flag E[c] == E[c-1] - ext is the
-// same identity read as "the exclusive prefix max did not rise at c - 1".
-// A row ends with a block (max, first argmax) reduction.  One
-// __syncthreads per chunk and one per row.
+// Design, by what it does about that:
+//  - A thread owns COLS consecutive band columns (8; 16 above 8,192 columns)
+//    and keeps their H, F, F2 and reference codes in registers for the whole
+//    item, so a block is W / 8 threads (5 warps at the usual W of
+//    1,001-1,264; 80 registers a thread, no spills, 5 blocks an SM).  The
+//    insertion neighbour (column c + 1 of the row above) is the thread's own
+//    next register; the last one comes by one __shfl_down_sync, across warps
+//    through one shared word per warp.
+//  - E and E2 run as the recurrence e[c] = max(e[c-1] - ext, base[c-1] -
+//    open) down the thread's own columns (exactly the prefix-max identity of
+//    the Pallas kernel, in integers), in two passes: pass 1 finds what the
+//    thread's columns alone hand on (its "tail" y_t = max_m(base[m] - open -
+//    (last - m) * ext)), a max-scan over threads turns the tails into what
+//    enters each thread (made a pure max by adding (t + 1) * COLS * ext: one
+//    warp scan per tier per thread, 5 shuffle steps for 8 cells, then one
+//    __reduce_max_sync over the warp totals in shared memory), pass 2 reruns
+//    the recurrence from there.  The "run continues" flag e[c] == e[c-1] -
+//    ext needs, for a thread's first column, the left thread's last e: it
+//    travels with the same scan (one more shuffle), not through another
+//    barrier.
+//  - Only the thread that holds the band's last column, and the threads past
+//    it, test for the band's edge (the MASKED instances of the two passes);
+//    warps wholly past the item's band write their zeros and leave, and the
+//    row loop's barriers count only the warps that stay (bar.sync 1, n).
+//  - The reference slides in registers: each row shifts the thread's codes by
+//    one and loads one byte from the item's reference slice ref[dlo, dlo + lq
+//    + W), staged in shared memory once (code 0xFF outside [0, lr)); the query
+//    is staged once too.  No global load sits on a row's critical path.
+//  - Two barriers a row over the block's few warps (the scan's warp totals;
+//    the row's new H for the neighbour exchange and the row max).  Shared
+//    words need no double buffer: each is written on one side of a barrier
+//    and read on the other.  A thread keeps its own (max H, first column) as
+//    one word h * COLS + (COLS - 1 - k); the row's is one __reduce_max_sync
+//    per warp on the packed word (h << 14) | (16383 - c), then one more over
+//    the warps' words.
+//  - Hopper DPX: __viaddmax_s32 for max(h - open, f - ext) and the E tails,
+//    __vimax3_s32_relu for base, __vimax3_s32 for h.
+//  - The flags go straight into the row's direction words; a thread's 8
+//    direction bytes leave as one 8-byte store when W is a multiple of 8
+//    (long_dp_batch rounds W to 16); the rows past lq are zeroed by the same
+//    threads with the same stores.
 //
-// Envelope: W <= 16384 columns (192 KB of shared memory, under the 227 KB
-// opt-in limit; wider items stay on the host DP).  int32 state: every H lies
-// in [0, match * lq]; F and F2 stay >= -open whenever they are read; the
-// lowest value formed is NEG - open2 - (W - 1) * ext, about -2^28 - 33,000,
-// far from int32's -2^31.
-//
-// What bounds it: the serial row loop with its barriers (a block does one
-// row at a time), and one byte per cell written to device memory.  Hopper
-// DPX intrinsics (__viaddmax_s32, packed s16x2 cells) and a traceback on the
-// card (which would remove the direction bytes' write and their copy to the
-// host) are later performance work.
+// Envelope: W <= 16384; codes in q and ref are 0-3 and 4 (N / pad); H <
+// 2^17 for the packed row max, i.e. match * LQ < 131072 (checked by the
+// entry point); shared memory 2 * LQ + threads * COLS bytes.  int32 state:
+// every H lies in [0, match * lq]; the lowest value formed is LNEG - ext2 -
+// open2, about -2^30, far from int32's -2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,30 +81,169 @@
 namespace {
 
 constexpr int NEG = -(1 << 28);
+// "no predecessor" in the E recurrences and scans: below every real value
+// (those are >= NEG - open - W * ext), so it never wins a max against one
+constexpr int LNEG = -(1 << 30);
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_W = 16384;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned ARG_MASK = 16383;  // packed row max: (h << 14) | (16383 - c)
+constexpr unsigned char OUT_OF_REF = 0xFF;
+constexpr unsigned char NO_BASE = 7;  // query code that equals no reference code
 
 struct Scoring {
   int match, mismatch, go, ge, go2, ge2;
 };
 
-__global__ void __launch_bounds__(MAX_THREADS)
+__device__ __forceinline__ int warp_scan_max(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v = max(v, t);
+  }
+  return v;
+}
+
+// Zero direction bytes of a thread's COLS columns of one row.
+template <int COLS, bool ALIGNED>
+__device__ __forceinline__ void store_zeros(int8_t* out, int c0, int W) {
+  if (ALIGNED) {
+#pragma unroll
+    for (int g = 0; g < COLS / 8; ++g)
+      if (c0 + 8 * g < W)
+        *reinterpret_cast<uint2*>(out + 8 * g) = make_uint2(0u, 0u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < COLS; ++k)
+      if (c0 + k < W) out[k] = 0;
+  }
+}
+
+// Barrier of the row loop: the n threads of the warps that hold a band
+// column (barrier 1; __syncthreads, barrier 0, is for the whole block).
+__device__ __forceinline__ void row_barrier(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
+// Pass 1 over a thread's columns of one row: the insertion lanes F and F2
+// (kept in place of the row above's), diag, base, the F / F2 "run continues"
+// bits (straight into the direction words), and the thread's E tails: y =
+// what its columns alone would hand to the column after its last, z = the
+// same without the last column's own base.  MASKED: the thread holds the
+// band's last column or columns past it (k >= nrem); the others skip every
+// test of that.
+template <int COLS, bool MASKED>
+__device__ __forceinline__ void pass1(
+    const int (&H)[COLS], int (&F)[COLS], int (&F2)[COLS],
+    const int (&R)[COLS], int (&base)[COLS], int (&diag)[COLS],
+    unsigned (&words)[COLS / 4], int hnL, int fnL, int f2nL, int qc, int nrem,
+    const Scoring& s, int negmm, int& z1, int& z2, int& y1, int& y2) {
+  int le1 = LNEG, le2 = LNEG;
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    const int hn = k + 1 < COLS ? H[k + 1] : hnL;
+    const int fn = k + 1 < COLS ? F[k + 1] : fnL;
+    const int f2n = k + 1 < COLS ? F2[k + 1] : f2nL;
+    const int tf = fn - s.ge, tf2 = f2n - s.ge2;
+    int f = __viaddmax_s32(hn, -s.go, tf);
+    int f2 = __viaddmax_s32(hn, -s.go2, tf2);
+    bool run1 = f == tf, run2 = f2 == tf2;
+    bool inb = R[k] != OUT_OF_REF;
+    if (MASKED) {
+      const bool nxt = k + 1 < nrem;  // column c + 1 is inside the band
+      run1 = run1 && nxt;
+      run2 = run2 && nxt;
+      f = nxt ? f : NEG;
+      f2 = nxt ? f2 : NEG;
+      inb = inb && k < nrem;
+    }
+    if (k % 4 == 0) words[k / 4] = 0u;
+    if (run1) words[k / 4] |= 0x20u << (8 * (k % 4));
+    if (run2) words[k / 4] |= 0x40u << (8 * (k % 4));
+    const int d = H[k] + (R[k] == qc ? s.match : negmm);
+    const int bs = inb ? __vimax3_s32_relu(d, f, f2) : NEG;
+    base[k] = bs;
+    diag[k] = d;
+    F[k] = f;
+    F2[k] = f2;
+    const int b1 = bs - s.go, b2 = bs - s.go2;
+    if (k + 1 < COLS) {
+      le1 = __viaddmax_s32(le1, -s.ge, b1);
+      le2 = __viaddmax_s32(le2, -s.ge2, b2);
+    } else {
+      z1 = le1 - s.ge;
+      z2 = le2 - s.ge2;
+      y1 = max(z1, b1);
+      y2 = max(z2, b2);
+    }
+  }
+}
+
+// Pass 2: E and E2 from what entered the thread (e: at its first column, t:
+// e of the column before, less ext), H, and the rest of the direction
+// bytes.  Returns max over the thread's columns of h * COLS + (COLS - 1 - k):
+// its largest H and the first column that holds it.
+template <int COLS, bool MASKED>
+__device__ __forceinline__ int pass2(
+    int (&H)[COLS], const int (&F)[COLS], const int (&F2)[COLS],
+    const int (&base)[COLS], const int (&diag)[COLS],
+    unsigned (&words)[COLS / 4], int e1, int e2, int t1, int t2, int nrem,
+    const Scoring& s) {
+  int lb = 0;
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    if (k > 0) {
+      t1 = e1 - s.ge;
+      t2 = e2 - s.ge2;
+      e1 = max(t1, base[k - 1] - s.go);
+      e2 = max(t2, base[k - 1] - s.go2);
+    }
+    int h = __vimax3_s32(base[k], e1, e2);
+    h = base[k] >= 0 ? h : 0;  // base is NEG exactly outside the reference
+    unsigned v = 1;
+    v = h == F2[k] ? 5u : v;
+    v = h == F[k] ? 4u : v;
+    v = h == e2 ? 3u : v;
+    v = h == e1 ? 2u : v;
+    v = h == diag[k] ? 1u : v;
+    v = h == 0 ? 0u : v;
+    if (e1 == t1) v |= 8u;
+    if (e2 == t2) v |= 16u;
+    int hb = h;
+    if (MASKED && k >= nrem) {  // past the band: byte 0, out of the row max
+      v = 0u;
+      hb = 0;
+    }
+    words[k / 4] |= v << (8 * (k % 4));
+    H[k] = h;
+    lb = max(lb, hb * COLS + (COLS - 1 - k));
+  }
+  return lb;
+}
+
+// ALIGNED: W is a multiple of 8, so every thread's 8-column groups start on
+// an 8-byte boundary of dirs and lie wholly inside or outside a row.
+// MAXT and MINB bound the block and the blocks an SM must hold (and so the
+// registers a thread may take): the usual item is 5 warps, a band of
+// thousands of columns up to 32.
+template <int COLS, int MAXT, int MINB, bool ALIGNED>
+__global__ void __launch_bounds__(MAXT, MINB)
 banded_long_kernel(const int8_t* __restrict__ q,
                    const int8_t* __restrict__ ref,
                    const int32_t* __restrict__ meta,
                    int8_t* __restrict__ dirs, int32_t* __restrict__ stats,
                    int LQ, int W, int lr, Scoring s) {
-  extern __shared__ int smem[];
-  int* sH = smem;           // previous row's H, F and F2 by band column
-  int* sF = smem + W;
-  int* sF2 = smem + 2 * W;
-  // per warp of a chunk, double-buffered by chunk parity so one barrier per
-  // chunk suffices: inclusive totals and the last lane's exclusive prefix
-  __shared__ int sTot1[2][MAX_WARPS], sTot2[2][MAX_WARPS];
-  __shared__ int sEx1[2][MAX_WARPS], sEx2[2][MAX_WARPS];
-  __shared__ int sMax[MAX_WARPS], sArg[MAX_WARPS];
+  static_assert(COLS == 8 || COLS == 16, "COLS is 8 or 16");
+  extern __shared__ unsigned char sbytes[];
+  // per warp: the inclusive scan total of its threads' tails, and its last
+  // thread's (e at its last column - ext), both tiers, in scaled form
+  __shared__ int sTot1[MAX_WARPS], sTot2[MAX_WARPS];
+  __shared__ int sTp1[MAX_WARPS], sTp2[MAX_WARPS];
+  // per warp: its first column's H, F, F2 of the row just finished (read by
+  // the last lane of the warp to its left); entry nwarps stays at its start
+  __shared__ int sNH[MAX_WARPS + 1], sNF[MAX_WARPS + 1], sNF2[MAX_WARPS + 1];
+  __shared__ unsigned sMax[MAX_WARPS];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -92,191 +258,221 @@ banded_long_kernel(const int8_t* __restrict__ q,
   int8_t* drow = dirs + (size_t)b * LQ * W;
   int32_t* srow = stats + (size_t)b * LQ * 2;
 
-  for (int c = tid; c < W; c += T) {
-    sH[c] = 0;
-    sF[c] = NEG;
-    sF2[c] = NEG;
+  // stage the query and the item's reference slice: sref[x] is the code at
+  // 0-based reference position dlo + x, the cell (row i, column c) reads
+  // x = c + i
+  unsigned char* sq = sbytes;
+  unsigned char* sref = sbytes + LQ;
+  const int nref = lq + T * COLS;
+  for (int x = tid; x < lq; x += T) {
+    const int c = qrow[x];
+    sq[x] = (c >= 0 && c < 4) ? (unsigned char)c : NO_BASE;
+  }
+  for (int x = tid; x < nref; x += T) {
+    const int pos = dlo + x;
+    sref[x] = (pos >= 0 && pos < lr) ? (unsigned char)ref[pos] : OUT_OF_REF;
+  }
+  for (int w = tid; w <= MAX_WARPS; w += T) {
+    sNH[w] = 0;
+    sNF[w] = NEG;
+    sNF2[w] = NEG;
   }
   __syncthreads();
 
-  int phase = 0;
-  for (int i = 0; i < lq; ++i) {
-    const int qc = qrow[i];
-    int carry1 = NEG, carry2 = NEG;  // inclusive prefix max before the chunk
-    int last1 = NEG, last2 = NEG;    // exclusive prefix of the column before
-    int rmax = 0, rarg = 0;          // H >= 0: (0, column 0) is the floor
-    for (int c0 = 0; c0 < W; c0 += T) {
-      const int c = c0 + tid;
-      const bool act = c < wo;
-      const bool nxt = c + 1 < wo;
-      int hp = 0, fn = NEG, f2n = NEG, f = NEG, f2 = NEG;
-      if (act) hp = sH[c];
-      if (nxt) {  // insertion: (i-1, j) is band column c + 1 of the row above
-        const int hn = sH[c + 1];
-        fn = sF[c + 1];
-        f2n = sF2[c + 1];
-        f = max(hn - s.go, fn - s.ge);
-        f2 = max(hn - s.go2, f2n - s.ge2);
-      }
-      const int pos = c + dlo + i;  // 0-based reference index of the cell
-      const bool inb = act && pos >= 0 && pos < lr;
-      const int rj = inb ? (int)ref[pos] : 4;
-      const int diag = hp + ((rj == qc && qc < 4) ? s.match : -s.mismatch);
-      const int base = inb ? max(max(diag, max(f, f2)), 0) : NEG;
+  const int c0 = tid * COLS;
+  const int nrem = wo - c0;  // columns k < nrem are inside the item's band
+  // rows past the query: zero stats (any thread, any time: no row of the
+  // loop below touches them)
+  for (int k = 2 * lq + tid; k < 2 * LQ; k += T) srow[k] = 0;
+  // warps that hold a column of the item's band; the others only write
+  // their zeros, never meet a barrier again and leave
+  const int wact = lq > 0 ? min(nwarps, (wo + 32 * COLS - 1) / (32 * COLS)) : 0;
+  if (warp >= wact) {
+    for (int i = 0; i < LQ; ++i)
+      store_zeros<COLS, ALIGNED>(drow + (size_t)i * W + c0, c0, W);
+    return;
+  }
+  const int nact = wact * 32;  // threads at the row loop's barriers
+  int H[COLS], F[COLS], F2[COLS], R[COLS];
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    H[k] = 0;
+    F[k] = NEG;
+    F2[k] = NEG;
+    R[k] = sref[c0 + k];
+  }
+  const int negmm = -s.mismatch;
+  // scales that turn the across-thread E recurrence into a plain max-scan
+  const int sc1 = tid * COLS * s.ge, sc2 = tid * COLS * s.ge2;
+  const int sc1n = sc1 + COLS * s.ge, sc2n = sc2 + COLS * s.ge2;
 
-      // inclusive max-scan of base + c*ext, both tiers in one pass
-      int w1 = base + c * s.ge, w2 = base + c * s.ge2;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t1 = __shfl_up_sync(FULL, w1, off);
-        const int t2 = __shfl_up_sync(FULL, w2, off);
-        if (lane >= off) {
-          w1 = max(w1, t1);
-          w2 = max(w2, t2);
-        }
-      }
-      int x1 = __shfl_up_sync(FULL, w1, 1);  // exclusive, within the warp
-      int x2 = __shfl_up_sync(FULL, w2, 1);
-      if (lane == 0) x1 = x2 = NEG;
-      if (lane == 31) {
-        sTot1[phase][warp] = w1;
-        sTot2[phase][warp] = w2;
-        sEx1[phase][warp] = x1;
-        sEx2[phase][warp] = x2;
-      }
-      __syncthreads();
-      // the warp totals, max-scanned across one warp: lane k holds the
-      // prefix through warp k of this chunk
-      int s1 = lane < nwarps ? sTot1[phase][lane] : NEG;
-      int s2 = lane < nwarps ? sTot2[phase][lane] : NEG;
-      const int xw1 = lane < nwarps ? sEx1[phase][lane] : NEG;
-      const int xw2 = lane < nwarps ? sEx2[phase][lane] : NEG;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t1 = __shfl_up_sync(FULL, s1, off);
-        const int t2 = __shfl_up_sync(FULL, s2, off);
-        if (lane >= off) {
-          s1 = max(s1, t1);
-          s2 = max(s2, t2);
-        }
-      }
-      // prefix before this warp (p) and before the warp to its left (pl)
-      const int wl = max(warp - 1, 0), wll = max(warp - 2, 0);
-      const int u1 = __shfl_sync(FULL, s1, wl), u2 = __shfl_sync(FULL, s2, wl);
-      const int v1 = __shfl_sync(FULL, s1, wll), v2 = __shfl_sync(FULL, s2, wll);
-      const int y1 = __shfl_sync(FULL, xw1, wl), y2 = __shfl_sync(FULL, xw2, wl);
-      const int p1 = warp > 0 ? max(carry1, u1) : carry1;
-      const int p2 = warp > 0 ? max(carry2, u2) : carry2;
-      const int pl1 = warp > 1 ? max(carry1, v1) : carry1;
-      const int pl2 = warp > 1 ? max(carry2, v2) : carry2;
-      const int ex1 = max(p1, x1), ex2 = max(p2, x2);
-      // the exclusive prefix of column c - 1
-      int l1 = __shfl_up_sync(FULL, ex1, 1);
-      int l2 = __shfl_up_sync(FULL, ex2, 1);
+  for (int i = 0; i < lq; ++i) {
+    const int qc = sq[i];
+    // insertion neighbour of the thread's last column: the next thread's
+    // first column of the row above
+    int hnL = __shfl_down_sync(FULL, H[0], 1);
+    int fnL = __shfl_down_sync(FULL, F[0], 1);
+    int f2nL = __shfl_down_sync(FULL, F2[0], 1);
+    if (lane == 31) {
+      hnL = sNH[warp + 1];
+      fnL = sNF[warp + 1];
+      f2nL = sNF2[warp + 1];
+    }
+
+    // pass 1: F, F2, diag, base, the F run bits and the thread's E tails
+    int base[COLS], diag[COLS];
+    unsigned words[COLS / 4];
+    int z1, z2, y1, y2;
+    if (nrem > COLS)
+      pass1<COLS, false>(H, F, F2, R, base, diag, words, hnL, fnL, f2nL, qc,
+                         nrem, s, negmm, z1, z2, y1, y2);
+    else
+      pass1<COLS, true>(H, F, F2, R, base, diag, words, hnL, fnL, f2nL, qc,
+                        nrem, s, negmm, z1, z2, y1, y2);
+    // (in row 0 no F run continues, and none is marked: the row above is
+    // H = 0, F = NEG, so h - open always beats f - ext)
+
+    // max-scan of the scaled tails over the block's threads
+    const int i1 = warp_scan_max(y1 + sc1n, lane);
+    const int i2 = warp_scan_max(y2 + sc2n, lane);
+    int x1 = __shfl_up_sync(FULL, i1, 1);  // exclusive, within the warp
+    int x2 = __shfl_up_sync(FULL, i2, 1);
+    if (lane == 0) x1 = x2 = LNEG;
+    // (e at this thread's last column) - ext, warp-local and scaled
+    const int tl1 = max(x1, z1 + sc1n), tl2 = max(x2, z2 + sc2n);
+    int tp1 = __shfl_up_sync(FULL, tl1, 1);  // the left thread's
+    int tp2 = __shfl_up_sync(FULL, tl2, 1);
+    if (lane == 31) {
+      sTot1[warp] = i1;
+      sTot2[warp] = i2;
+      sTp1[warp] = tl1;
+      sTp2[warp] = tl2;
+    }
+    row_barrier(nact);
+    int p1 = LNEG, p2 = LNEG;  // prefix over the warps to the left
+    if (warp > 0) {            // (warp-uniform)
+      const int v1 = lane < warp ? sTot1[lane] : LNEG;
+      const int v2 = lane < warp ? sTot2[lane] : LNEG;
+      p1 = __reduce_max_sync(FULL, v1);
+      p2 = __reduce_max_sync(FULL, v2);
+      // the same without the nearest warp: what its last lane saw
+      const int pp1 = __reduce_max_sync(FULL, lane < warp - 1 ? v1 : LNEG);
+      const int pp2 = __reduce_max_sync(FULL, lane < warp - 1 ? v2 : LNEG);
       if (lane == 0) {
-        if (warp > 0) {
-          l1 = max(pl1, y1);
-          l2 = max(pl2, y2);
-        } else {
-          l1 = last1;
-          l2 = last2;
-        }
+        tp1 = max(pp1, sTp1[warp - 1]);
+        tp2 = max(pp2, sTp2[warp - 1]);
+      } else {
+        tp1 = max(p1, tp1);
+        tp2 = max(p2, tp2);
       }
-      const int e = c >= 1 ? ex1 - s.go - (c - 1) * s.ge : NEG;
-      const int e2 = c >= 1 ? ex2 - s.go2 - (c - 1) * s.ge2 : NEG;
-      const int h = inb ? max(base, max(e, e2)) : 0;
-      if (act) {
-        const int src = h == 0 ? 0
-                        : h == diag ? 1
-                        : h == e ? 2
-                        : h == e2 ? 3
-                        : h == f ? 4
-                        : h == f2 ? 5
-                        : 1;
-        const int byte = src | ((c > 1 && ex1 == l1) << 3)
-                         | ((c > 1 && ex2 == l2) << 4)
-                         | ((nxt && i >= 1 && f == fn - s.ge) << 5)
-                         | ((nxt && i >= 1 && f2 == f2n - s.ge2) << 6);
-        drow[(size_t)i * W + c] = (int8_t)byte;
-        sH[c] = h;
-        sF[c] = f;
-        sF2[c] = f2;
-        if (h > rmax) {  // columns ascend: strict > keeps the first
-          rmax = h;
-          rarg = c;
-        }
-      } else if (c < W) {
-        drow[(size_t)i * W + c] = 0;
-      }
-      // carries into the next chunk (the same in every thread)
-      const int n1 = nwarps - 1, n2 = max(nwarps - 2, 0);
-      const int a1 = __shfl_sync(FULL, s1, n1), a2 = __shfl_sync(FULL, s2, n1);
-      const int b1 = __shfl_sync(FULL, s1, n2), b2 = __shfl_sync(FULL, s2, n2);
-      const int z1 = __shfl_sync(FULL, xw1, n1), z2 = __shfl_sync(FULL, xw2, n1);
-      last1 = max(nwarps > 1 ? max(carry1, b1) : carry1, z1);
-      last2 = max(nwarps > 1 ? max(carry2, b2) : carry2, z2);
-      carry1 = max(carry1, a1);
-      carry2 = max(carry2, a2);
-      phase ^= 1;
     }
-    // row (max, first argmax) over the block
+    // e at the thread's first column, and (e at the column before) - ext
+    const int e1 = max(p1, x1) - sc1, e2 = max(p2, x2) - sc2;
+    const int t1 = tp1 - sc1, t2 = tp2 - sc2;
+
+    // pass 2: E, E2, H, the direction bytes, the thread's row max
+    const int lb = nrem >= COLS
+        ? pass2<COLS, false>(H, F, F2, base, diag, words, e1, e2, t1, t2,
+                             nrem, s)
+        : pass2<COLS, true>(H, F, F2, base, diag, words, e1, e2, t1, t2,
+                            nrem, s);
+    // the E run bits need a column before the one before: not columns 0, 1
+    if (tid == 0) words[0] &= ~0x00001818u;
+    // H >= 0: (0, column 0) is the floor of the packed row max
+    const unsigned ub = (unsigned)lb;
+    unsigned best = max(ARG_MASK, ((ub / COLS) << 14)
+                                      | (ARG_MASK - (c0 + COLS - 1
+                                                     - ub % COLS)));
+    int8_t* out = drow + (size_t)i * W + c0;
+    if (ALIGNED) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int om = __shfl_down_sync(FULL, rmax, off);
-      const int oa = __shfl_down_sync(FULL, rarg, off);
-      if (om > rmax || (om == rmax && oa < rarg)) {
-        rmax = om;
-        rarg = oa;
-      }
+      for (int g = 0; g < COLS / 8; ++g)
+        if (c0 + 8 * g < W)
+          *reinterpret_cast<uint2*>(out + 8 * g) =
+              make_uint2(words[2 * g], words[2 * g + 1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < COLS; ++k)
+        if (c0 + k < W)
+          out[k] = (int8_t)((words[k / 4] >> (8 * (k % 4))) & 0xff);
     }
+
+    // the reference slides one position for the next row
+#pragma unroll
+    for (int k = 0; k + 1 < COLS; ++k) R[k] = R[k + 1];
+    R[COLS - 1] = sref[c0 + COLS + i];
+
+    best = __reduce_max_sync(FULL, best);
     if (lane == 0) {
-      sMax[warp] = rmax;
-      sArg[warp] = rarg;
+      sMax[warp] = best;
+      sNH[warp] = H[0];
+      sNF[warp] = F[0];
+      sNF2[warp] = F2[0];
     }
-    __syncthreads();
-    if (tid == 0) {
-      int m = sMax[0], a = sArg[0];
-      for (int w = 1; w < nwarps; ++w) {
-        if (sMax[w] > m || (sMax[w] == m && sArg[w] < a)) {
-          m = sMax[w];
-          a = sArg[w];
-        }
+    row_barrier(nact);
+    if (warp == 0) {
+      unsigned m = lane < wact ? sMax[lane] : 0u;
+      m = __reduce_max_sync(FULL, m);
+      if (lane == 0) {
+        srow[2 * i] = (int)(m >> 14);
+        srow[2 * i + 1] = (int)(ARG_MASK - (m & ARG_MASK));
       }
-      srow[2 * i] = m;
-      srow[2 * i + 1] = a;
     }
   }
-  // rows past the query: zero
-  const size_t cells = (size_t)LQ * W;
-  for (size_t k = (size_t)lq * W + tid; k < cells; k += T) drow[k] = 0;
-  for (int k = 2 * lq + tid; k < 2 * LQ; k += T) srow[k] = 0;
+
+  // rows past the query: zero, by the same threads with the same stores
+  for (int i = lq; i < LQ; ++i)
+    store_zeros<COLS, ALIGNED>(drow + (size_t)i * W + c0, c0, W);
 }
+
+template <int COLS, int MAXT, int MINB>
+cudaError_t launch(const int8_t* q, const int8_t* ref, const int32_t* meta,
+                   int8_t* dirs, int32_t* stats, int B, int LQ, int W, int lr,
+                   Scoring s, int threads, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * LQ + (size_t)threads * COLS;
+  const bool aligned = W % 8 == 0
+                       && reinterpret_cast<uintptr_t>(dirs) % 8 == 0;
+  auto kernel = aligned ? banded_long_kernel<COLS, MAXT, MINB, true>
+                        : banded_long_kernel<COLS, MAXT, MINB, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, smem, stream>>>(q, ref, meta, dirs, stats, LQ, W, lr,
+                                       s);
+  return cudaGetLastError();
+}
+
+constexpr int SMALL_THREADS = 256;
 
 }  // namespace
 
 // q int8 [B, LQ] codes 0-3 (4 = N/pad), ref int8 [lr], meta int32 [B, 3] =
 // (lq, dlo, worig) per item, dirs int8 [B, LQ, W], stats int32 [B, LQ, 2];
-// all device pointers, row-major and contiguous.  Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// all device pointers, row-major and contiguous.  A thread takes 8 band
+// columns up to 8,192 columns, else 16.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int panmap_banded_long(const void* q, const void* ref,
                                   const void* meta, void* dirs, void* stats,
                                   int B, int LQ, int W, int lr, int match,
                                   int mismatch, int gap_open, int gap_ext,
                                   int gap_open2, int gap_ext2, void* stream) {
   if (B <= 0) return 0;
-  if (LQ <= 0 || W <= 0 || W > MAX_W || lr < 0)
+  if (LQ <= 0 || W <= 0 || W > MAX_W || lr < 0 || match <= 0
+      || (long long)match * LQ >= (1 << 17))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)12 * W;
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // as few chunks as 1024-thread blocks allow, spread evenly over the warps
-  const int chunks = (W + MAX_THREADS - 1) / MAX_THREADS;
-  const int threads = ((W + chunks - 1) / chunks + 31) / 32 * 32;
   const Scoring s{match, mismatch, gap_open, gap_ext, gap_open2, gap_ext2};
-  banded_long_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const int8_t*)ref, (const int32_t*)meta,
-      (int8_t*)dirs, (int32_t*)stats, LQ, W, lr, s);
-  return (int)cudaGetLastError();
+  const int8_t* qp = (const int8_t*)q;
+  const int8_t* rp = (const int8_t*)ref;
+  const int32_t* mp = (const int32_t*)meta;
+  int8_t* dp = (int8_t*)dirs;
+  int32_t* sp = (int32_t*)stats;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int cols = W <= 8 * MAX_THREADS ? 8 : 16;
+  const int threads = ((W + cols - 1) / cols + 31) / 32 * 32;
+#define PANMAP_LONG_LAUNCH(C, T, M) \
+  (int)launch<C, T, M>(qp, rp, mp, dp, sp, B, LQ, W, lr, s, threads, st)
+  if (cols == 16) return PANMAP_LONG_LAUNCH(16, MAX_THREADS, 1);
+  return threads <= SMALL_THREADS ? PANMAP_LONG_LAUNCH(8, SMALL_THREADS, 2)
+                                  : PANMAP_LONG_LAUNCH(8, MAX_THREADS, 1);
+#undef PANMAP_LONG_LAUNCH
 }

@@ -1,38 +1,125 @@
 """Metagenomic abundance (--meta) on one GPU: the port's copy of
 panmap_tpu/meta/driver.py::run_meta, split into its stages.
 
-The stages and every host piece are the JAX package's: MetaConfig,
-ensure_meta_index, the read sketchers, MetaScorer (tree collapse, kept and
-identical nodes, the native host scorer, pseudochain, the scores TSV), the
-shared-rank candidate ranking, --em-candidates, --discard and the abundance
-writer.  What changes:
+The stages and every host piece are carried over from the JAX package
+(MetaConfig and ensure_meta_index here, unchanged; meta/engine.py's read
+sketchers and MetaScorer: tree collapse, kept and identical nodes, the
+native host scorer, pseudochain, the scores TSV), as are the shared-rank
+candidate ranking, --em-candidates, --discard and the abundance writer.
+What changes:
 
  - the device scorer is TorchMetaScorer, under the same routing rule
    (>= 2,000 unique read sets, no pseudochain, no scores TSV, no
    --host-score);
  - the EM is the port's run_squarem (torch EM for a device snapshot or a
-   host matrix past 5 M cells, else the shared numpy f64 EM), or the
+   host matrix past 5 M cells, else the numpy f64 EM), or the
    numpy f64 EM at any size under --em-f64;
- - no mesh and no backend warm-up (both import jax); --mesh > 1 and
+ - no mesh and no backend warm-up (jax programs); --mesh > 1 and
    --filter-and-assign raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
-from panmap_tpu.io import fastq
-from panmap_tpu.meta.driver import MetaConfig, ensure_meta_index  # noqa: F401
-from panmap_tpu.meta.engine import MetaScorer
-from panmap_tpu.meta.engine import run_squarem as host_run_squarem
-
+from .. import native
+from ..index.builder import IndexParams
+from ..io import fastq
+from ..io.panman import load_panman
 from ..utils.device import as_device
 from .em import run_squarem
+from .engine import MetaScorer
+from .engine import run_squarem as host_run_squarem
 from .engine_torch import TorchMetaScorer
+from .index import (
+    build_meta_index,
+    load_meta_index,
+    read_meta_params,
+    save_meta_index,
+)
 
-FAST_MIN_READS = 2000  # the device scorer's floor (meta/driver.py:175)
+FAST_MIN_READS = 2000  # the device scorer's floor (panmap_tpu/meta/driver.py:175)
+
+
+@dataclass
+class MetaConfig:
+    panman: str = ""
+    reads1: str = ""
+    reads2: str = ""
+    output: str = "sample"
+    index_path: str = ""  # load a pre-built .ptmidx from this path
+    index_out: str = ""  # write the built meta index here (main.cpp --index-out)
+    k: int = 19
+    s: int = 8
+    t: int = 0
+    l: int = 3
+    open: bool = False
+    em_convergence_threshold: float = 1e-5
+    em_delta_threshold: float = 0.0
+    em_maximum_rounds: int = 5
+    em_maximum_iterations: int = 1000
+    top_oc: int = 1000
+    dust: float = 100.0
+    discard: float = 0.0
+    mask_reads: int = 0
+    mask_seeds: int = 0
+    mask_reads_rf: float = 0.0
+    mask_seeds_rf: float = 0.0
+    amplicon_depth: str = ""
+    mask_read_ends: int = 0
+    pseudochain: bool = False
+    filter_and_assign: bool = False
+    batch_size: int = 1_000_000  # filter-and-assign read-stream batch
+    host_score: bool = False  # --host-score: threaded native CPU scoring
+    em_f64: bool = False  # --em-f64: host float64 EM (reference precision)
+    mesh: int = 0  # --mesh: shard the EM's reads over N devices (0 = auto)
+    taxonomy_path: str = ""
+    taxonomic_rank: str = "Family"
+    max_taxon_number: int = 1
+    ambiguous_score_threshold: int = 0
+    ambiguous_score_threshold_ratio: float = 0.0
+    breadth_ratio: bool = False
+    jplace: bool = False
+    align_reads: bool = False
+    min_num_align: int = 10
+    write_ocranks: bool = False
+    write_read_scores_unfiltered: bool = False
+    write_read_scores_filtered: bool = False
+    leaves_only: bool = False
+    em_candidates: str = ""  # dev: file of node ids; restrict the EM to them
+    threads: int = 0
+    stop: str = ""
+    log: object = print
+
+
+def ensure_meta_index(cfg: MetaConfig, tree=None):
+    path = cfg.index_path or cfg.index_out or cfg.panman + ".ptmidx.npz"
+    want = dict(k=cfg.k, s=cfg.s, t=cfg.t, l=cfg.l, open=cfg.open)
+    if os.path.exists(path):
+        try:
+            hdr = read_meta_params(path)
+            if (all(hdr.get(kk) == vv for kk, vv in want.items())
+                    and os.path.getmtime(path) >= os.path.getmtime(cfg.panman)):
+                return load_meta_index(path), tree
+        except Exception:
+            pass
+    if tree is None:
+        tree = load_panman(cfg.panman)
+    t0 = time.time()
+    midx = build_meta_index(
+        tree, IndexParams(k=cfg.k, s=cfg.s, t=cfg.t, l=cfg.l, open=cfg.open),
+        workers=cfg.threads or (os.cpu_count() or 1))
+    cfg.log(f"[meta-index] built in {time.time()-t0:.1f}s "
+            f"({len(midx.delta_seed)} deltas, {len(midx.seed_hash)} seeds)")
+    try:
+        save_meta_index(path, midx)
+    except OSError:
+        cfg.log(f"[meta-index] warning: could not cache at {path}")
+    return midx, tree
 
 
 def check_supported(cfg: MetaConfig):
@@ -51,7 +138,7 @@ def sketch(cfg: MetaConfig, midx):
     masking = (cfg.mask_reads or cfg.mask_seeds or cfg.mask_reads_rf
                or cfg.mask_seeds_rf or cfg.amplicon_depth or cfg.mask_read_ends)
     if masking:
-        from panmap_tpu.meta.engine import sketch_meta_reads_grouped
+        from .engine import sketch_meta_reads_grouped
 
         names, seqs, _ = fastq.read_full(cfg.reads1)
         if cfg.reads2:
@@ -63,7 +150,7 @@ def sketch(cfg: MetaConfig, midx):
         cfg.log(f"[meta] {len(seqs)} reads -> {len(reads)} unique seedmer sets"
                 f" ({n_dust} low-complexity, {n_masked} masked)")
     else:
-        from panmap_tpu.meta.engine import sketch_meta_reads_full
+        from .engine import sketch_meta_reads_full
 
         seqs = fastq.read_paired_for_placement(cfg.reads1, cfg.reads2 or None)
         reads, dup_index, n_dust = sketch_meta_reads_full(
@@ -228,6 +315,7 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
     seconds (sketch_s, prep_s, score_s, em_s), the EM's SQUAREM steps
     (em_iters) and the EM matrix's shape (R, M)."""
     check_supported(cfg)
+    native.require_lib()  # a failed build raises here, not a silent slow path
     # the index is built (forking build workers) or loaded BEFORE the first
     # CUDA call: a CUDA context does not survive fork
     if midx is None:
@@ -258,7 +346,7 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
                  R=len(reads), M=len(candidates))
 
     if cfg.write_read_scores_unfiltered:
-        from panmap_tpu.meta.engine import count_epp, write_read_scores_tsv
+        from .engine import count_epp, write_read_scores_tsv
 
         epp = count_epp(node_scores, max_score,
                         midx.parent_index.astype(np.int64), scorer.tree.keep,

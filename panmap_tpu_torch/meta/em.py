@@ -17,12 +17,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from panmap_tpu.meta.engine import (
+from .engine import (
     ERROR_RATE,
     PROP_THRESHOLD_TO_REMOVE,
     EMResult,
 )
-from panmap_tpu.meta.engine import run_squarem as host_run_squarem
+from .engine import run_squarem as host_run_squarem
 
 STEPS_PER_TURN = 8
 _KEY_ROWS = 1 << 16  # row block of the collapse keys
@@ -204,7 +204,8 @@ def run_squarem(score_matrix, read_lens: np.ndarray,
     """engine.run_squarem's routing: a tensor [R, M] runs the torch EM on
     its own device; a host matrix [M, R] with M x R > 5,000,000 runs it on
     ``device`` (on the CPU under ``prefer_cpu``, the JAX package's
-    --host-score choice); anything smaller runs the shared numpy f64 EM."""
+    --host-score choice); anything smaller runs the numpy f64 EM
+    (meta/engine.py::run_squarem)."""
     kw = dict(eta=eta, max_change_threshold=max_change_threshold,
               max_iterations=max_iterations, max_rounds=max_rounds)
     if isinstance(score_matrix, torch.Tensor):

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from panmap_tpu.meta.events import (
+from .events import (
     overlap_coefficients_from_events,
     presence_events,
 )

@@ -15,9 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from panmap_tpu.index.builder import IndexArrays
-from panmap_tpu.utils.fastnp import unique_inverse
-
+from ..index.builder import IndexArrays
+from ..utils.fastnp import unique_inverse
 from . import metrics
 
 
@@ -97,46 +96,5 @@ def prepare_device_index(idx: IndexArrays, device) -> DeviceIndex:
                               row_node, len(uniq), n_nodes, parent, device),
         root_rid_np=rid[a:b].copy(),
         root_child_np=idx.child_counts[a:b].astype(np.float64),
-        device=device,
-    )
-
-
-def device_index_from_jax(jax_dev, device) -> DeviceIndex:
-    """The JAX package's single-device DeviceIndex (engine_tpu.DeviceIndex,
-    read out as numpy arrays) as the port's: the index state carries across
-    unchanged, which the parity tests use to score the same tensors in both
-    packages.  Integer index arrays widen to int64 (torch's index dtype)."""
-    device = torch.device(device)
-    if jax_dev.blk is None or jax_dev.csc is None:
-        raise ValueError("a mesh-sharded DeviceIndex has no blk/csc")
-
-    def put(x, dt=None):
-        t = torch.from_numpy(np.array(x))
-        return t.to(device=device, dtype=dt or t.dtype)
-
-    i64 = torch.int64
-    jb, jc = jax_dev.blk, jax_dev.csc
-    blk = metrics.BlockSegments(
-        L=jb.L, B=jb.B, pad=jb.pad, n_rows=jb.n_rows,
-        lastp=put(jb.lastp, i64), base=put(jb.base, i64),
-        has_base=put(jb.has_base), spanning=put(jb.spanning),
-        seg_node=put(jb.seg_node, i64), eb_blk=put(jb.eb_blk, i64),
-        q_flat=put(jb.q_flat, i64), has_bnd=put(jb.has_bnd))
-    csc = metrics.CscIndex(
-        off=put(jc.off), P=put(jc.P), C=put(jc.C), node=put(jc.node, i64),
-        mag_prefix=put(jc.mag_prefix),
-        off_np=np.array(jc.off_np), n_rows=jc.n_rows)
-    return DeviceIndex(
-        unique_hashes=np.array(jax_dev.unique_hashes),
-        row_id=put(jax_dev.row_id, i64),
-        row_parent=put(jax_dev.row_parent),
-        row_child=put(jax_dev.row_child),
-        euler_in=put(jax_dev.euler_in, i64),
-        euler_out=put(jax_dev.euler_out, i64),
-        n_nodes=int(jax_dev.n_nodes),
-        root_rows=tuple(int(x) for x in jax_dev.root_rows),
-        blk=blk, csc=csc,
-        root_rid_np=np.array(jax_dev.root_rid_np),
-        root_child_np=np.array(jax_dev.root_child_np),
         device=device,
     )

@@ -1,11 +1,26 @@
-"""Torch twins of the placement metric bodies in panmap_tpu/place/metrics.py.
+"""The five placement metrics' row-delta math: the numpy bodies of
+panmap_tpu/place/metrics.py and their torch twins.
 
-The JAX package's bodies take an array namespace (``numpy`` or
-``jax.numpy``) but do not run on torch tensors: they pass Python floats to
-``xp.maximum`` (torch.maximum takes tensors only) and call ``.astype``
-(tensors have ``.to``).  So the port keeps its own copies here, formula for
-formula, and tests/test_torch_place_metrics.py holds each against the JAX
-original and the numpy f64 oracle.
+The reference maintains its metrics as per-row deltas streamed over each
+node's SoA range (src/placement.cpp:242-345 computeChildMetrics; the metric
+formulas live in the NodeMetrics getters, src/placement.hpp:108-155).
+
+**Array-namespace bodies** (``row_metric_deltas``, ``wc_denominator``,
+``finalize_scores``): carried over unchanged; place/engine.py (the numpy
+float64 parity oracle) and the exact f64 rescue of place/query_torch.py call
+them with ``numpy``.  The JAX package's traced functions (its jax.numpy
+scoring bodies) are not carried: the ``*_torch`` functions below take their
+place.
+
+**Torch twins.**  The namespace bodies do not run on torch tensors: they pass
+Python floats to ``xp.maximum`` (torch.maximum takes tensors only) and call
+``.astype`` (tensors have ``.to``).  So the device path keeps its own copies
+here, formula for formula (``row_metric_deltas_torch``,
+``wc_denominator_torch``, ``finalize_scores_torch``, and the scoring bodies
+under the JAX names ``expand_query``, ``sparse_prefix_acc``,
+``row_node_sums_blocked``, ``euler_prefix``), and
+tests/test_torch_place_metrics.py holds each against the JAX original and
+the numpy f64 oracle.
 
 Index conventions differ from JAX in one way that matters on a GPU: JAX
 drops out-of-range scatter indices and clamps out-of-range gathers, while
@@ -14,10 +29,14 @@ the context).  Every scatter below therefore writes to an explicit dump slot
 and every gather stays in range by construction.
 
 The host-side constructors of the static index structures (``block_segments``,
-``csc_index``) rebuild the arrays of metrics.make_block_segments /
-make_csc_index in numpy (those call jax.numpy) and move them to the device.
-The containers are the JAX package's own ``BlockSegments`` / ``CscIndex``
-slot classes, holding torch tensors.
+``csc_index``) build the arrays of the JAX package's make_block_segments /
+make_csc_index in numpy and move them to the device; the containers are the
+``BlockSegments`` / ``CscIndex`` slot classes, holding torch tensors.
+
+ACCUMULATOR ORDER (axis 1 of everything downstream):
+  0 genome-magnitude^2   1 logRaw numerator   2 logCosine numerator
+  3 weightedContainment numerator             4 logContainment numerator
+  5 presence (containment numerator)
 """
 
 from __future__ import annotations
@@ -25,17 +44,146 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from panmap_tpu.place.metrics import (  # noqa: F401  (re-exported)
-    N_ACC,
-    BlockSegments,
-    CscIndex,
-    query_found_rows,
-)
+METRICS = ("log_raw", "log_cosine", "containment", "weighted_containment",
+           "log_containment")
+
+N_ACC = 6  # accumulator columns (see module docstring)
 
 
-def row_metric_deltas(lrc, P, C, found):
+def row_metric_deltas(xp, lrc, P, C, found):
+    """Per-row metric deltas (placement.cpp:242-345).
+
+    xp     numpy or jax.numpy — selects host-f64 vs traced-f32 execution
+    lrc    float[T] log1p(read count) of the row's hash, 0 where not found
+    P, C   float[T] parent/child seed counts of the row
+    found  bool[T]  row hash present in the (filtered) read seed table
+
+    Returns the 6 delta arrays in accumulator order.  Divisions guard with
+    ``maximum(x, 1)`` instead of errstate so the same expression traces under
+    jit; for P >= 1 the quotient is bit-identical to the unguarded division.
+    """
+    one = lrc.dtype.type(1.0) if hasattr(lrc.dtype, "type") else 1.0
+    log_child = xp.where(C > 0, xp.log1p(C), 0.0)
+    log_parent = xp.where(P > 0, xp.log1p(P), 0.0)
+    mag_delta = log_child * log_child - log_parent * log_parent
+
+    active = ((C - P) != 0) & found
+    became_present = ((P == 0) & (C != 0)).astype(lrc.dtype)
+    became_absent = ((C == 0) & (P != 0)).astype(lrc.dtype)
+    presence_delta = xp.where(active, became_present - became_absent, 0.0)
+
+    old_contrib = xp.where(P > 0, lrc / xp.maximum(P, one), 0.0)
+    new_contrib = xp.where(C > 0, lrc / xp.maximum(C, one), 0.0)
+    old_wc = xp.where(P > 0, 1.0 / xp.maximum(P, one), 0.0)
+    new_wc = xp.where(C > 0, 1.0 / xp.maximum(C, one), 0.0)
+    lograw_delta = xp.where(active, new_contrib - old_contrib, 0.0)
+    logcos_delta = xp.where(active, lrc * (log_child - log_parent), 0.0)
+    wc_delta = xp.where(active, new_wc - old_wc, 0.0)
+    logcont_delta = presence_delta * lrc
+    return (mag_delta, lograw_delta, logcos_delta, wc_delta, logcont_delta,
+            presence_delta)
+
+
+def wc_denominator(xp, lrc_root, C_root, found_root):
+    """Weighted-containment denominator over the ROOT node's rows in stored
+    order (src/placement.cpp:1861-1876).  The numpy path sums via cumsum so
+    the f64 addition order is sequential, matching the reference's
+    accumulation loop (np.sum is pairwise and can differ in the last bit)."""
+    import numpy as _np
+
+    one = lrc_root.dtype.type(1.0) if hasattr(lrc_root.dtype, "type") else 1.0
+    inv = xp.where((C_root > 0) & found_root,
+                   1.0 / xp.maximum(C_root, one), 0.0)
+    if xp is _np:
+        return _np.cumsum(inv)[-1] if len(inv) else 0.0
+    return xp.sum(inv)
+
+
+def finalize_scores(xp, acc, log_mag, read_unique, logcont_den, wc_den):
+    """Accumulator [N,6] -> scores [N,5] in METRICS order (the NodeMetrics
+    getters, src/placement.hpp:120-149).  Division guards via where-on-both-
+    sides so the same body runs as numpy f64 (scalar stats) and traced f32
+    (0-d array stats)."""
+    gmsq, lograw, logcos, wc_num, logcont, presence = (
+        acc[:, i] for i in range(N_ACC))
+    z = xp.zeros_like(lograw)
+    ok_mag = log_mag > 0
+    s0 = xp.where(ok_mag, lograw / xp.where(ok_mag, log_mag, 1.0), z)
+    gm = xp.sqrt(xp.maximum(gmsq, 0.0))
+    den = log_mag * gm
+    s1 = xp.clip(xp.where(den > 0, logcos / xp.where(den > 0, den, 1.0), z),
+                 0.0, 1.0)
+    s2 = xp.where(read_unique > 0,
+                  presence / xp.where(read_unique > 0, read_unique, 1), z)
+    s3 = xp.where(wc_den > 0, wc_num / xp.where(wc_den > 0, wc_den, 1.0), z)
+    s4 = xp.where(logcont_den > 0,
+                  logcont / xp.where(logcont_den > 0, logcont_den, 1.0), z)
+    return xp.stack([s0, s1, s2, s3, s4], axis=1)
+
+
+class BlockSegments:
+    """Static per-index structure for the blocked per-node reduction.
+
+    row_node is FIXED per DeviceIndex, so every segment boundary is known on
+    the host.  That turns the per-node sum into: one block-local cumsum
+    (native XLA op — unlike the 2.4M-row sorted scatter it is HBM-speed and
+    compiles in seconds), gathers at STATIC positions, a tiny segmented scan
+    over the B block totals for segments spanning block boundaries, and one
+    M-row scatter (M = #non-empty nodes, ~60x smaller than the row count).
+
+    f32 error semantics: per-segment, bounded by the BLOCK-local cumsum
+    magnitude (<= L rows) — measured ~25x tighter than the sorted scatter's
+    own accumulation error at bench shapes, and far from the rejected
+    global-cumsum prefix-difference (see row_node_sums note).
+    """
+
+    __slots__ = ("L", "B", "pad", "lastp", "base", "has_base", "spanning",
+                 "seg_node", "eb_blk", "q_flat", "has_bnd", "n_rows")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class CscIndex:
+    """Static per-index CSC structure: index rows grouped by unique hash id.
+
+    The full row stream has T ~ millions of rows, but a single query's read
+    seed table only FINDS a few thousand distinct hashes — and every
+    query-dependent metric delta is zero on rows whose hash is not found
+    (row_metric_deltas: ``active`` and ``presence_delta`` both carry the
+    ``found`` factor).  Grouping rows by hash id lets the device expand and
+    score ONLY the found rows (typically 100-1000x fewer than T), replacing
+    the reference's full-SoA stream (src/placement.cpp:242-345) with work
+    proportional to the query's hit set.  The one query-independent
+    accumulator (column 0, the genome-magnitude^2 deltas) is precomputed per
+    node in f64 on the host (``mag_static``).
+    """
+
+    __slots__ = ("off", "P", "C", "node", "mag_static", "mag_prefix",
+                 "off_np", "n_rows")
+
+    def __init__(self, **kw):
+        self.mag_prefix = None
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+def query_found_rows(csc: CscIndex, uids):
+    """Host: number of index rows the query's found uid set touches (decides
+    the RCAP bucket / dense fallback before any device dispatch)."""
+    import numpy as np
+
+    if len(uids) == 0:
+        return 0
+    u = np.asarray(uids, dtype=np.int64)
+    return int(np.sum(csc.off_np[u + 1].astype(np.int64)
+                      - csc.off_np[u].astype(np.int64)))
+
+
+def row_metric_deltas_torch(lrc, P, C, found):
     """Per-row metric deltas in accumulator order (placement.cpp:242-345);
-    twin of panmap_tpu.place.metrics.row_metric_deltas."""
+    torch twin of row_metric_deltas."""
     log_child = torch.where(C > 0, torch.log1p(C), 0.0)
     log_parent = torch.where(P > 0, torch.log1p(P), 0.0)
     mag_delta = log_child * log_child - log_parent * log_parent
@@ -57,7 +205,7 @@ def row_metric_deltas(lrc, P, C, found):
             presence_delta)
 
 
-def wc_denominator(lrc_root, C_root, found_root):
+def wc_denominator_torch(lrc_root, C_root, found_root):
     """Weighted-containment denominator over the root node's rows
     (placement.cpp:1861-1876), as a 0-d tensor.  ``lrc_root`` only carries
     the dtype, as in the JAX body."""
@@ -185,7 +333,7 @@ def sparse_prefix_acc(q_uids, q_logc, csc: CscIndex, euler_in, euler_out,
     P = csc.P[rowpos].to(lrc.dtype)
     C = csc.C[rowpos].to(lrc.dtype)
     node = csc.node[rowpos]
-    deltas = row_metric_deltas(lrc, P, C, valid)
+    deltas = row_metric_deltas_torch(lrc, P, C, valid)
     d5 = torch.stack(deltas[1:], dim=1)  # invalid rows carry all-zero deltas
     dump = 2 * n_nodes + 1
     slot_in = torch.where(valid, euler_in[node], dump)
@@ -212,7 +360,7 @@ def row_node_sums_blocked(lrc, P, C, found, blk: BlockSegments,
     the f32 tree scan's, which place_exact's measured guards budget."""
     P = P.to(lrc.dtype)
     C = C.to(lrc.dtype)
-    deltas = torch.stack(row_metric_deltas(lrc, P, C, found), dim=1)
+    deltas = torch.stack(row_metric_deltas_torch(lrc, P, C, found), dim=1)
     K = deltas.shape[1]
     dp = torch.nn.functional.pad(deltas, (0, 0, 0, blk.pad))
     # block-local prefix sums along the contiguous dimension (see
@@ -248,9 +396,9 @@ def euler_prefix(node_sums, euler_in, euler_out, n_nodes: int):
     return cumsum_rows(slots)[euler_in]
 
 
-def finalize_scores(acc, log_mag, read_unique, logcont_den, wc_den):
+def finalize_scores_torch(acc, log_mag, read_unique, logcont_den, wc_den):
     """Accumulator [N,6] -> scores [N,5] in METRICS order (the NodeMetrics
-    getters, placement.hpp:120-149); twin of metrics.finalize_scores.  The
+    getters, placement.hpp:120-149); torch twin of finalize_scores.  The
     four statistics may be Python numbers or 0-d tensors; they are taken in
     the accumulator's dtype."""
     def stat(x):

@@ -22,11 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from panmap_tpu.index.builder import IndexArrays
-from panmap_tpu.place.engine import METRICS, PlacementScores, rescore_paths
-from panmap_tpu.place.metrics import wc_denominator as wc_denominator_np
-
+from ..index.builder import IndexArrays
 from . import metrics as tm
+from .engine import METRICS, PlacementScores, rescore_paths
 from .engine_torch import prepare_device_index
 
 
@@ -57,7 +55,7 @@ class TorchPlacer:
 
     def __init__(self, idx: IndexArrays, device, dev=None):
         """``dev``: an already prepared DeviceIndex (e.g. from
-        engine_torch.device_index_from_jax); built from ``idx`` otherwise."""
+        convert.device_index); built from ``idx`` otherwise."""
         self.idx = idx
         self.device = torch.device(device)
         self.dev = dev if dev is not None else prepare_device_index(
@@ -88,7 +86,7 @@ class TorchPlacer:
             found = uids[posc] == rid
         else:
             found = np.zeros(len(rid), dtype=bool)
-        return float(wc_denominator_np(np, np.zeros(len(rid)),
+        return float(tm.wc_denominator(np, np.zeros(len(rid)),
                                        dev.root_child_np, found))
 
     def _score_sparse_dispatch(self, uids, logc, log_mag, nuniq, lden, elig,
@@ -115,7 +113,7 @@ class TorchPlacer:
                                    torch.from_numpy(pl).to(d), csc,
                                    self.dev.euler_in, self.dev.euler_out,
                                    self.dev.n_nodes, max(F, 1))
-        scores = tm.finalize_scores(acc, np.float32(log_mag),
+        scores = tm.finalize_scores_torch(acc, np.float32(log_mag),
                                     np.int32(nuniq), np.float32(lden),
                                     np.float32(wc_den))
         return widened_candidates(scores, elig)
@@ -133,12 +131,12 @@ class TorchPlacer:
             self.device)
         a, b = d.root_rows
         lrc_root = uid_logc[d.row_id[a:b]]
-        wc_den = tm.wc_denominator(lrc_root, d.row_child[a:b], lrc_root > 0)
+        wc_den = tm.wc_denominator_torch(lrc_root, d.row_child[a:b], lrc_root > 0)
         lrc = uid_logc[d.row_id]
         node_sums = tm.row_node_sums_blocked(lrc, d.row_parent, d.row_child,
                                              lrc > 0, d.blk, d.n_nodes)
         acc = tm.euler_prefix(node_sums, d.euler_in, d.euler_out, d.n_nodes)
-        scores = tm.finalize_scores(acc, np.float32(log_mag),
+        scores = tm.finalize_scores_torch(acc, np.float32(log_mag),
                                     np.int32(nuniq), np.float32(lden), wc_den)
         return widened_candidates(scores, elig)
 
@@ -190,7 +188,7 @@ class TorchPlacer:
             rfound = sk.sorted_hashes[ric] == Hr
         else:
             rfound = np.zeros(rb - ra, dtype=bool)
-        wc_den64 = float(wc_denominator_np(np, np.zeros(rb - ra), Cr,
+        wc_den64 = float(tm.wc_denominator(np, np.zeros(rb - ra), Cr,
                                            rfound)) if rb > ra else 0.0
         dens = (sk.log_read_magnitude, sk.log_read_magnitude,
                 float(sk.read_unique_seed_count), wc_den64,

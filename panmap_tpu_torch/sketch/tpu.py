@@ -1,14 +1,14 @@
-"""The host read encoder of panmap_tpu/sketch/tpu.py, without that module's
-jax import.  The module name mirrors the JAX package's so that
-BatchAligner._align_chunk's relative import of the encoder resolves here
-when align/batch.py runs that oracle for the port."""
+"""The host read encoder of panmap_tpu/sketch/tpu.py (the rest of that
+module is the JAX device sketch, which the port does not carry).  The
+module name mirrors the JAX package's, so the numpy oracle of
+align/batch.py imports its encoder from the same place in both."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from panmap_tpu.align.core import _ENC
-from panmap_tpu.native import encode_reads_native
+from ..align.core import _ENC
+from ..native import encode_reads_native
 
 
 def encode_reads_batch(seqs: list, pad_to: int | None = None):

@@ -33,11 +33,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from panmap_tpu.index.builder import IndexArrays, IndexParams
-from panmap_tpu.meta.engine import sketch_meta_reads_full
-from panmap_tpu.meta.index import MetaIndexArrays
-from panmap_tpu.place.engine import sketch_reads
-from panmap_tpu.simulate import (
+from .index.builder import IndexArrays, IndexParams
+from .meta.engine import sketch_meta_reads_full
+from .meta.index import MetaIndexArrays
+from .place.engine import sketch_reads
+from .simulate import (
     ERROR_MODELS,
     INSERT_MEAN,
     INSERT_SD,

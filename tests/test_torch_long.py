@@ -13,24 +13,42 @@
 Tolerance everywhere: exact equality (the path is all integer).
 """
 
-from dataclasses import replace
+from dataclasses import asdict, replace
 
 import numpy as np
 import pytest
 import torch
 
+from panmap_tpu.align import longread as jax_longread
 from panmap_tpu.align import pallas_long
 from panmap_tpu.align.core import encode
-from panmap_tpu.align.longread import (
+from panmap_tpu.align.longread import LongReadAligner, banded_dp_shifted
+from panmap_tpu_torch.align import long_dp
+from panmap_tpu_torch.align import longread as port_longread
+from panmap_tpu_torch.align.longread import (
     MAP_HIFI,
     MAP_ONT,
-    LongReadAligner,
-    banded_dp_shifted,
+    TorchLongReadAligner,
 )
-from panmap_tpu_torch.align import long_dp
-from panmap_tpu_torch.align.longread import TorchLongReadAligner
 
+# the port's presets; the JAX package's functions get its own class
 PRESETS = [MAP_ONT, MAP_HIFI]
+
+
+def _jax(pre):
+    """The port's LongPreset as the JAX package's (field for field)."""
+    assert isinstance(pre, port_longread.LongPreset)
+    return jax_longread.LongPreset(**asdict(pre))
+
+
+def test_presets_are_the_jax_packages():
+    for mine, theirs in ((MAP_ONT, jax_longread.MAP_ONT),
+                         (MAP_HIFI, jax_longread.MAP_HIFI)):
+        assert asdict(mine) == asdict(theirs)
+        assert _jax(mine) == theirs
+    for n in (400, 4999, 5000, 20000):
+        assert (port_longread.pick_preset(n).name
+                == jax_longread.pick_preset(n).name)
 
 
 @pytest.fixture(autouse=True)
@@ -105,6 +123,7 @@ def _pallas_rows(items, refc, pre):
         qb[s, : len(q)] = q
         rb[s, : len(q)] = pallas_long._build_band(refc, len(q), dlo, W)
         meta[s, :3] = (dlo, len(refc), dhi - dlo + 1)
+    pre = _jax(pre)
     dirs, stats = pallas_long._long_call(
         jnp.asarray(qb.astype(np.int8)), jnp.asarray(rb.astype(np.int8)),
         jnp.asarray(meta), pre.match, pre.mismatch, pre.gap_open,
@@ -162,9 +181,11 @@ def test_batch_matches_host_dp_and_pallas_batch(pre):
     refc, items = _items(11, 6, 500, 900, 300)
     stats = {}
     got = long_dp.long_dp_batch(items, refc, pre, "cpu", stats)
-    host = [banded_dp_shifted(q, refc, a, b, pre) for q, a, b in items]
+    host = [banded_dp_shifted(q, refc, a, b, _jax(pre)) for q, a, b in items]
     assert got == host
-    assert got == pallas_long.long_dp_device_batch(items, refc, pre,
+    assert got == [port_longread.banded_dp_shifted(q, refc, a, b, pre)
+                   for q, a, b in items]
+    assert got == pallas_long.long_dp_device_batch(items, refc, _jax(pre),
                                                    interpret=True)
     assert (stats["items"], stats["device_dp"], stats["host_dp"]) == (6, 6, 0)
     if pre is not MAP_HIFI:  # the deletion item aligns across it
@@ -187,9 +208,9 @@ def test_batch_narrow_bands_and_edges():
              (refc[20:700].copy(), -180, 220),
              (refc[5400:6000].copy(), 5300, 5700)]
     got = long_dp.long_dp_batch(cases, refc, MAP_ONT, "cpu")
-    assert got == [banded_dp_shifted(qq, refc, a, b, MAP_ONT)
+    assert got == [banded_dp_shifted(qq, refc, a, b, _jax(MAP_ONT))
                    for qq, a, b in cases]
-    assert got == pallas_long.long_dp_device_batch(cases, refc, MAP_ONT,
+    assert got == pallas_long.long_dp_device_batch(cases, refc, _jax(MAP_ONT),
                                                    interpret=True)
 
 
@@ -224,6 +245,52 @@ def test_batch_chunks_under_the_dirs_cap(monkeypatch):
     assert all(b * lq * w <= 2 * 400 * 301 for b, lq, w in shapes)
 
 
+@pytest.mark.parametrize("margin", [107, 131, 164], ids=lambda m: f"W{2*m+1}")
+def test_batch_rounds_the_launch_width_to_16(monkeypatch, margin):
+    """long_dp_batch launches at W rounded up to a multiple of 16 (the
+    kernel's 8-byte stores want aligned rows); the padded columns are 0 and
+    are cut off again, so the results equal banded_dp_shifted item by item
+    for bands whose width is no multiple of 16."""
+    refc, items = _items(37, 5, 200, 330, margin)
+    # bands of different widths in one launch, none a multiple of 16
+    items = [(q, dlo + s, dhi) for s, (q, dlo, dhi) in enumerate(items)]
+    assert all((dhi - dlo + 1) % 16 for _, dlo, dhi in items)
+    widths = []
+    real = long_dp.long_dp_rows
+
+    def spy(q, ref, meta, pre, width):
+        widths.append((int(meta[:, 2].max()), width))
+        dirs, rows = real(q, ref, meta, pre, width)
+        for s in range(q.shape[0]):
+            assert not dirs[s, :, int(meta[s, 2]):].any()
+        return dirs, rows
+
+    monkeypatch.setattr(long_dp, "long_dp_rows", spy)
+    got = long_dp.long_dp_batch(items, refc, MAP_ONT, "cpu")
+    assert got == [banded_dp_shifted(q, refc, a, b, _jax(MAP_ONT))
+                   for q, a, b in items]
+    assert widths and all(w % 16 == 0 and 0 <= w - worig < 16
+                          for worig, w in widths)
+
+
+def test_items_past_the_packed_row_max_run_the_host_dp():
+    """The kernel packs a row's (max, argmax) as (h << 14) | (16383 - c),
+    so it takes match * LQ < 2^17, and the wrapper refuses a longer launch.
+    No preset's item gets there: at the narrowest band (2 * bw + 1) the
+    cell cap already sends a query of MAX_PACKED_H / match bases to the
+    host DP."""
+    for pre in PRESETS:
+        w = 2 * pre.bw
+        q = np.zeros(long_dp.MAX_PACKED_H // pre.match, np.uint8)
+        assert long_dp._on_host(q, 0, w)
+        assert not long_dp._on_host(q[:1400], 0, w)
+    with pytest.raises(ValueError):
+        long_dp.long_dp_rows(torch.zeros((1, 1 << 16), dtype=torch.int8),
+                             torch.zeros(50, dtype=torch.int8),
+                             torch.tensor([[4, 0, 8]], dtype=torch.int32),
+                             MAP_ONT, 8)
+
+
 def test_finish_one_is_the_jax_packages():
     ours, theirs = long_dp._finish_one, pallas_long._finish_one
     for attr in ("co_code", "co_consts", "co_names", "co_varnames"):
@@ -235,7 +302,7 @@ def test_finish_one_is_the_jax_packages():
     for s, (qq, dlo, dhi) in enumerate(items):
         d, st = dirs[s].numpy(), stats[s].numpy()
         assert ours(qq, dlo, d, st, MAP_ONT) == theirs(qq, dlo, d, st,
-                                                       MAP_ONT)
+                                                       _jax(MAP_ONT))
 
 
 def _mixed_reads(seed, n):
@@ -265,15 +332,18 @@ def _mixed_reads(seed, n):
 @pytest.mark.parametrize("pre", PRESETS, ids=lambda p: p.name)
 def test_aligner_matches_host_aligner(pre):
     ref, reads = _mixed_reads(71, 12)
-    base = LongReadAligner(ref, pre).align_batch(reads, device=None)
+    base = LongReadAligner(ref, _jax(pre)).align_batch(reads, device=None)
+    host = port_longread.LongReadAligner(ref, pre).align_batch(reads)
     stats = {}
     got = TorchLongReadAligner(ref, pre, "cpu", stats=stats).align_batch(
         reads)
-    assert len(got) == len(base)
-    for i, (a, b) in enumerate(zip(base, got)):
+    assert len(got) == len(base) == len(host)
+    for i, (a, b, c) in enumerate(zip(base, got, host)):
         assert (a.mapped, a.rev, a.rs, a.re, a.qs, a.qe, a.score, a.mapq,
                 a.cigar) == (b.mapped, b.rev, b.rs, b.re, b.qs, b.qe,
                              b.score, b.mapq, b.cigar), i
+        assert (a.mapped, a.rs, a.re, a.score, a.cigar) == (
+            c.mapped, c.rs, c.re, c.score, c.cigar), i
     assert not got[-1].mapped
     assert sum(a.mapped and a.rev for a in got) > 0
     assert stats["device_dp"] == stats["items"] > 0 and stats["host_dp"] == 0
@@ -333,3 +403,22 @@ def test_cuda_kernel_matches_reference():
             want = long_dp.long_dp_rows_reference(qt, ref, mt, pre, W)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_edge_items():
+    """The redesigned kernel on the edge launches of chip_smoke.py's phase
+    7 (chip_smoke.long_edge_phase: both presets, both column counts per
+    thread the kernel chooses between); bit-equal over whole arrays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    n, err = chip_smoke.long_edge_phase(long_dp, np.random.default_rng(4),
+                                        torch.device("cuda", 0))
+    assert n >= 26 and err == 0

@@ -15,7 +15,9 @@ on the CPU, at a small size: a make_meta_workload of a few hundred nodes, a
    device route, the host route, --em-f64 and --host-score.
 
 The port runs on CPU tensors, passed on purpose; JAX runs on its CPU
-backend.
+backend.  The workload is the port's (synthetic.py); the JAX package gets
+its own MetaIndexArrays, MetaRead and MetaConfig objects, built from the
+port's through plain dicts (convert.py).
 """
 
 import os
@@ -25,18 +27,19 @@ import pytest
 import torch
 
 from panmap_tpu.meta import driver as hd
-from panmap_tpu.meta.engine import (
-    PROP_THRESHOLD_TO_REMOVE,
-    MetaRead,
-    MetaScorer,
-)
+from panmap_tpu.meta.engine import PROP_THRESHOLD_TO_REMOVE, MetaScorer
+from panmap_tpu.meta.engine import MetaRead as JaxMetaRead
 from panmap_tpu.meta.engine import run_squarem as jax_run_squarem
 from panmap_tpu.meta.engine_tpu import TpuMetaScorer
-from panmap_tpu.meta.index import save_meta_index
+from panmap_tpu_torch.meta.index import save_meta_index
 from panmap_tpu.native import get_lib
+from panmap_tpu_torch import convert
 from panmap_tpu_torch.__main__ import main as torch_main
 from panmap_tpu_torch.meta import driver as td
 from panmap_tpu_torch.meta import em
+from panmap_tpu_torch.meta.engine import MetaRead
+from panmap_tpu_torch.meta.engine import MetaScorer as PortMetaScorer
+from panmap_tpu_torch.meta.engine import run_squarem as port_f64_squarem
 from panmap_tpu_torch.meta.engine_torch import (
     TorchMetaScorer,
     presence_chunk,
@@ -44,6 +47,7 @@ from panmap_tpu_torch.meta.engine_torch import (
 )
 from panmap_tpu_torch.synthetic import make_meta_workload
 from test_meta_em import _synthetic
+from test_torch_standalone import jax_meta_index
 
 CPU = torch.device("cpu")
 
@@ -71,8 +75,11 @@ def scored(tmp_path_factory):
             np.uint64), revs=rng.random(k) < 0.5, n_dup=1))
     saved = TpuMetaScorer.NODE_CHUNK, TorchMetaScorer.NODE_CHUNK
     TpuMetaScorer.NODE_CHUNK = TorchMetaScorer.NODE_CHUNK = 64
+    # the same state as the JAX package's own objects
+    w.jmidx = jax_meta_index(w.midx)
+    w.jreads = [JaxMetaRead(**convert.as_dict(r)) for r in reads]
     try:
-        jx = TpuMetaScorer(w.midx, reads)
+        jx = TpuMetaScorer(w.jmidx, w.jreads)
         pt = TorchMetaScorer(w.midx, reads, CPU)
     finally:
         TpuMetaScorer.NODE_CHUNK, TorchMetaScorer.NODE_CHUNK = saved
@@ -172,9 +179,11 @@ def test_score_all_equals_tpu_and_host_scorer(scored, which):
     ms, snap = pt.score_all(cand)
     assert snap.shape == (len(reads), len(cand)) and snap.dtype == torch.int16
     jms, jsnap = jx.score_all(cand)
-    hms, hsnap = MetaScorer(w.midx, reads).score_all(cand)
+    hms, hsnap = MetaScorer(w.jmidx, w.jreads).score_all(cand)
+    pms, psnap = PortMetaScorer(w.midx, reads).score_all(cand)
     assert ms.dtype == np.int32
     assert np.array_equal(ms, jms) and np.array_equal(ms, hms)
+    assert np.array_equal(pms, hms) and np.array_equal(psnap, hsnap)
     got = snap.numpy().T.astype(np.int64)
     assert np.array_equal(got, jsnap.astype(np.int64))
     assert np.array_equal(got, hsnap.astype(np.int64))
@@ -264,6 +273,10 @@ def test_em_matches_jax_device_em_and_f64(case):
                          names)
     jx = jax_run_squarem(jnp.asarray(S.T), lens, w, names)
     f64 = jax_run_squarem(S, lens, w, names, backend="numpy")
+    mine = port_f64_squarem(S, lens, w, names)  # the carried numpy f64 EM
+    assert mine.node_names == f64.node_names
+    assert np.array_equal(mine.props, f64.props)
+    assert mine.identical_groups == f64.identical_groups
     assert got.n_iterations > 0
     for other in (jx, f64):
         assert got.node_names == other.node_names
@@ -381,7 +394,7 @@ def test_run_meta_matches_jax_package(tmp_path, big, route):
                               em_delta_threshold=1e-5, mesh=1,
                               log=lambda m, *a, **k: lines.append(m), **opts)
 
-    assert hd.run_meta(cfg(hd, "jax"), midx=w.midx) == 0
+    assert hd.run_meta(cfg(hd, "jax"), midx=jax_meta_index(w.midx)) == 0
     stats = {}
     assert td.run_meta(cfg(td, "torch"), midx=w.midx, device=CPU,
                        stats=stats) == 0

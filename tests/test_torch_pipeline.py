@@ -7,16 +7,15 @@ pairs; and the long-read path on 40 ONT-like reads).  All five outputs
 The JAX side runs as its tests run on the CPU: TpuPlacer on the JAX CPU
 backend with mesh = 1, the Pallas SW kernel in interpret mode, the host
 pileup tally.  The port runs on torch CPU tensors, where the SW wrapper uses
-its plain version.  A subprocess run shows the port never loads jax (this
-process has it loaded by the conftest), CIGAR-overflow realignment, the
-long-read path and --meta abundance included.
+its plain version.  Each side gets its own package's objects: the workload
+is made by the port (synthetic.py) and its index crosses to the JAX package
+as a plain dict (convert.py); the configs are each package's own class.
+That the port runs without jax and without panmap_tpu is
+tests/test_torch_standalone.py's subject.
 """
 
 import filecmp
-import json
 import os
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -26,9 +25,9 @@ from panmap_tpu.native import get_lib
 from panmap_tpu_torch import pipeline as tp
 from panmap_tpu_torch.__main__ import main as torch_main
 from panmap_tpu_torch.synthetic import make_long_workload, make_workload
+from test_torch_standalone import jax_index
 
 OUTPUTS = ("placement.tsv", "ref.fa", "bam", "vcf", "consensus.fa")
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native library unavailable")
@@ -45,11 +44,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _cfg(out, w, lines, **kw):
-    return hp.PipelineConfig(panman="synthetic", reads1=w.reads1,
-                             reads2=w.reads2, output=out, mesh=1,
-                             device_pileup="off",
-                             log=lambda msg, *a, **k: lines.append(msg), **kw)
+def _cfg(mod, out, w, lines, **kw):
+    """``mod``'s own PipelineConfig (hp: the JAX package, tp: the port)."""
+    return mod.PipelineConfig(panman="synthetic", reads1=w.reads1,
+                              reads2=w.reads2, output=out, mesh=1,
+                              device_pileup="off",
+                              log=lambda msg, *a, **k: lines.append(msg),
+                              **kw)
 
 
 def _small(tmp_path, seed):
@@ -64,18 +65,19 @@ def test_slice_outputs_byte_equal_to_jax_package(tmp_path, monkeypatch, seed):
     # interpret mode
     monkeypatch.setenv("PANMAP_PALLAS", "interpret")
     lines = []
-    cfg = _cfg(str(tmp_path / "jax" / "sample"), w, lines)
+    cfg = _cfg(hp, str(tmp_path / "jax" / "sample"), w, lines)
+    jidx = jax_index(w.idx)
     os.makedirs(os.path.dirname(cfg.output))
-    res, best, _ = hp.run_placement(cfg, w.idx)
+    res, best, _ = hp.run_placement(cfg, jidx)
     ref, placed, join = hp.run_alignment(cfg, w.tree, best, defer_bam=True,
                                          prefetch=hp._start_align_prefetch(cfg))
-    final = hp.run_genotyping(cfg, w.idx, ref, best, placed)
+    final = hp.run_genotyping(cfg, jidx, ref, best, placed)
     join()
     hp.run_consensus(cfg, ref, best, final)
     monkeypatch.delenv("PANMAP_PALLAS")
 
     # the port
-    tcfg = _cfg(str(tmp_path / "torch" / "sample"), w, lines)
+    tcfg = _cfg(tp, str(tmp_path / "torch" / "sample"), w, lines)
     os.makedirs(os.path.dirname(tcfg.output))
     cpu = torch.device("cpu")
     tres, tbest, _ = tp.run_placement(tcfg, w.idx, cpu)
@@ -98,86 +100,6 @@ def test_slice_outputs_byte_equal_to_jax_package(tmp_path, monkeypatch, seed):
     for ext in OUTPUTS:
         a, b = f"{cfg.output}.{ext}", f"{tcfg.output}.{ext}"
         assert filecmp.cmp(a, b, shallow=False), ext
-
-
-_NO_JAX_RUN = r"""
-import json, os, sys
-import torch
-from panmap_tpu_torch import pipeline as tp
-from panmap_tpu_torch.synthetic import make_long_workload, make_workload
-
-out = sys.argv[1]
-w = make_workload(os.path.join(out, "reads"), seed=2, n_nodes=40,
-                  genome_len=30000, n_pairs=300)
-cfg = tp.PipelineConfig(panman="synthetic", reads1=w.reads1, reads2=w.reads2,
-                        output=os.path.join(out, "sample"),
-                        log=lambda *a, **k: None)
-cpu = torch.device("cpu")
-res, best, _ = tp.run_placement(cfg, w.idx, cpu)
-ref, placed = tp.run_alignment(cfg, w.tree, best, cpu)
-final = tp.run_genotyping(cfg, w.idx, ref, best, placed)
-tp.run_consensus(cfg, ref, best, final)
-
-# CIGARs past a 2-op native capacity: the numpy oracle redoes those reads
-import functools
-import panmap_tpu.native as native
-from panmap_tpu.io import fastq
-from panmap_tpu_torch.align.batch import TorchBatchAligner
-
-native.align_sr_native = functools.partial(native.align_sr_native, cigar_cap=2)
-_, seqs, _ = fastq.read_paired_for_alignment(w.reads1, w.reads2)
-arrays = TorchBatchAligner(ref, cpu).align_batch_arrays(seqs)
-
-# the long-read path
-lw = make_long_workload(os.path.join(out, "long_reads"), seed=2, n_reads=6,
-                        n_nodes=40, genome_len=4000)
-lout = os.path.join(out, "long")
-lcfg = tp.PipelineConfig(panman="synthetic", reads1=lw.reads1,
-                         output=lout + "/sample", log=lambda *a, **k: None)
-os.makedirs(lout)
-stats = {}
-res, best, _ = tp.run_placement(lcfg, lw.idx, cpu)
-ref, placed = tp.run_alignment(lcfg, lw.tree, best, cpu, stats=stats)
-final = tp.run_genotyping(lcfg, lw.idx, ref, best, placed)
-tp.run_consensus(lcfg, ref, best, final)
-
-# --meta abundance on the device route (>= 2,000 unique read sets)
-from panmap_tpu_torch.meta import driver as md
-from panmap_tpu_torch.synthetic import make_meta_workload
-
-mw = make_meta_workload(os.path.join(out, "meta_reads"), seed=2, n_nodes=200,
-                        genome_len=5000, n_pairs=1300)
-mcfg = md.MetaConfig(panman="synthetic", reads1=mw.reads1, reads2=mw.reads2,
-                     output=os.path.join(out, "meta"), log=lambda *a, **k: None)
-mstats = {}
-md.run_meta(mcfg, midx=mw.midx, device=cpu, stats=mstats)
-print(json.dumps({"jax": "jax" in sys.modules,
-                  "outputs": sorted(os.listdir(out)),
-                  "long_outputs": sorted(os.listdir(lout)),
-                  "long_device_dp": stats["device_dp"],
-                  "oversized": len(arrays["extra_cigars"]),
-                  "meta_route": mstats["route"]}))
-"""
-
-
-def test_port_never_imports_jax(tmp_path):
-    # JAX_PLATFORMS as a CUDA host with jax installed sets it: panmap_tpu's
-    # own package init would import jax under it
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cuda,cpu",
-               OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path)],
-                          capture_output=True, text=True, env=env, cwd=REPO,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got["jax"] is False
-    assert got["oversized"] > 0
-    assert got["long_device_dp"] > 0
-    for ext in OUTPUTS:
-        assert f"sample.{ext}" in got["outputs"], ext
-        assert f"sample.{ext}" in got["long_outputs"], ext
-    assert got["meta_route"] == "device"
-    assert "meta.mgsr.abundance.out" in got["outputs"]
 
 
 @pytest.mark.parametrize("argv", [
@@ -209,16 +131,18 @@ def test_long_read_slice_outputs_byte_equal_to_jax_package(tmp_path,
     assert len(w.junk) == 1
     monkeypatch.setenv("PANMAP_PALLAS_LONG", "0")
     lines = []
-    cfg = _cfg(str(tmp_path / "jax" / "sample"), w, lines, min_qual=10)
+    cfg = _cfg(hp, str(tmp_path / "jax" / "sample"), w, lines, min_qual=10)
+    jidx = jax_index(w.idx)
     os.makedirs(os.path.dirname(cfg.output))
-    res, best, _ = hp.run_placement(cfg, w.idx)
+    res, best, _ = hp.run_placement(cfg, jidx)
     ref, placed, join = hp.run_alignment(cfg, w.tree, best, defer_bam=True,
                                          prefetch=hp._start_align_prefetch(cfg))
-    final = hp.run_genotyping(cfg, w.idx, ref, best, placed)
+    final = hp.run_genotyping(cfg, jidx, ref, best, placed)
     join()
     hp.run_consensus(cfg, ref, best, final)
 
-    tcfg = _cfg(str(tmp_path / "torch" / "sample"), w, lines, min_qual=10)
+    tcfg = _cfg(tp, str(tmp_path / "torch" / "sample"), w, lines,
+                min_qual=10)
     os.makedirs(os.path.dirname(tcfg.output))
     cpu = torch.device("cpu")
     tres, tbest, _ = tp.run_placement(tcfg, w.idx, cpu)
@@ -241,3 +165,78 @@ def test_long_read_slice_outputs_byte_equal_to_jax_package(tmp_path,
     for ext in OUTPUTS:
         a, b = f"{cfg.output}.{ext}", f"{tcfg.output}.{ext}"
         assert filecmp.cmp(a, b, shallow=False), ext
+
+
+def _saved(tmp_path, w):
+    """The workload's index saved beside an older dummy panman, so
+    run_pipeline loads it; returns (panman, index path)."""
+    from panmap_tpu_torch.io.index_io import save_index
+
+    panman = tmp_path / "x.panman"
+    panman.write_bytes(b"")
+    os.utime(panman, (0, 0))
+    idx = str(tmp_path / "x.ptidx.npz")
+    save_index(idx, w.idx)
+    return str(panman), idx
+
+
+@pytest.mark.parametrize("option", ["bwa", "refine", "host_place",
+                                    "export_ref_idx"])
+def test_host_options_run_in_the_port(tmp_path, monkeypatch, option):
+    """The options whose work is all host code (--aligner bwa, --refine,
+    --host-place, --export-ref-idx) run through the port's own copies of
+    that code, from run_pipeline down, with the JAX package's results."""
+    w = _small(tmp_path, 3)
+    panman, idx_path = _saved(tmp_path, w)
+    monkeypatch.setattr(tp, "load_panman", lambda path: w.tree)
+    lines = []
+    ref_idx = str(tmp_path / "exported.idx")
+    opts = {"bwa": {"aligner": "bwa"}, "refine": {"refine": True},
+            "host_place": {"device_place": False},
+            "export_ref_idx": {"export_ref_idx": ref_idx,
+                               "stop": "place"}}[option]
+    out = tmp_path / "torch"
+    out.mkdir()
+    cfg = tp.PipelineConfig(panman=panman, reads1=w.reads1, reads2=w.reads2,
+                            index_path=idx_path, output=str(out / "sample"),
+                            log=lambda m, *a, **k: lines.append(m), **opts)
+    tp.run_pipeline(cfg, device=torch.device("cpu"))
+    placement = open(cfg.output + ".placement.tsv").read()
+    jidx = jax_index(w.idx)
+    if option == "bwa":
+        jout = tmp_path / "jax"
+        jout.mkdir()
+        jcfg = hp.PipelineConfig(panman=panman, reads1=w.reads1,
+                                 reads2=w.reads2, output=str(jout / "sample"),
+                                 aligner="bwa", device_pileup="off",
+                                 log=lambda *a, **k: None)
+        best = placement.splitlines()[1].split("\t")[-1]
+        ref, placed = hp.run_alignment(jcfg, w.tree, best)
+        final = hp.run_genotyping(jcfg, jidx, ref, best, placed)
+        hp.run_consensus(jcfg, ref, best, final)
+        assert [x for x in lines if "aDNA backend" in x]
+        for ext in ("ref.fa", "bam", "vcf", "consensus.fa"):
+            assert filecmp.cmp(f"{jcfg.output}.{ext}", f"{cfg.output}.{ext}",
+                               shallow=False), ext
+    elif option == "refine":
+        assert "refined" in placement.lower()
+        for ext in OUTPUTS:
+            assert os.path.getsize(f"{cfg.output}.{ext}") > 0, ext
+    elif option == "host_place":
+        # the f64 host engine's placement is what the device path gives
+        dev_out = tmp_path / "dev"
+        dev_out.mkdir()
+        dcfg = tp.PipelineConfig(panman=panman, reads1=w.reads1,
+                                 reads2=w.reads2, index_path=idx_path,
+                                 output=str(dev_out / "sample"), stop="place",
+                                 log=lambda *a, **k: None)
+        tp.run_pipeline(dcfg, device=torch.device("cpu"))
+        assert open(dcfg.output + ".placement.tsv").read() == placement
+    else:
+        from panmap_tpu.io.refidx import read_ref_index
+
+        got = read_ref_index(ref_idx)  # the JAX package reads the port's file
+        assert got.node_ids == jidx.node_ids
+        for name in ("seed_hashes", "parent_counts", "child_counts",
+                     "node_offsets", "parent_index"):
+            assert (getattr(got, name) == getattr(jidx, name)).all(), name

@@ -16,9 +16,9 @@ import torch
 import jax.numpy as jnp
 
 from panmap_tpu.place import metrics as jm
+from panmap_tpu_torch import convert
 from panmap_tpu_torch.place import metrics as tm
-from panmap_tpu_torch.place.engine_torch import (device_index_from_jax,
-                                                 prepare_device_index)
+from panmap_tpu_torch.place.engine_torch import prepare_device_index
 
 from test_place_reductions import _oracle_f64, _random_case
 from test_tpu_paths import _synthetic_index
@@ -81,7 +81,7 @@ def test_row_metric_deltas_match_jax_and_f64(seed):
     lrc = np.where(rng.random(T) < 0.5, rng.random(T) * 3, 0).astype(
         np.float32)
     found = lrc > 0
-    got = tm.row_metric_deltas(_t(lrc), _t(P), _t(C), _t(found))
+    got = tm.row_metric_deltas_torch(_t(lrc), _t(P), _t(C), _t(found))
     ref = jm.row_metric_deltas(jnp, jnp.asarray(lrc), jnp.asarray(P),
                                jnp.asarray(C), jnp.asarray(found))
     f64 = jm.row_metric_deltas(np, lrc.astype(np.float64),
@@ -99,7 +99,7 @@ def test_finalize_scores_and_wc_den_match_jax(zero_stats):
     acc = (rng.random((50, 6)) * 4 - 1).astype(np.float32)
     acc[:, 0] = np.abs(acc[:, 0])
     stats = (0.0, 0, 0.0, 0.0) if zero_stats else (7.5, 40, 21.0, 3.25)
-    got = tm.finalize_scores(_t(acc), *[np.float32(s) for s in stats])
+    got = tm.finalize_scores_torch(_t(acc), *[np.float32(s) for s in stats])
     ref = jm.finalize_scores(jnp, jnp.asarray(acc),
                              *[jnp.float32(s) for s in stats])
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
@@ -107,7 +107,7 @@ def test_finalize_scores_and_wc_den_match_jax(zero_stats):
     np.testing.assert_allclose(got.numpy(), f64, atol=1e-5)
     C = rng.integers(0, 4, 30).astype(np.int16)
     lrc = np.where(rng.random(30) < 0.6, 1.5, 0).astype(np.float32)
-    wc = tm.wc_denominator(_t(lrc), _t(C), _t(lrc > 0))
+    wc = tm.wc_denominator_torch(_t(lrc), _t(C), _t(lrc > 0))
     wref = jm.wc_denominator(jnp, jnp.asarray(lrc),
                              jnp.asarray(C.astype(np.float32)),
                              jnp.asarray(lrc > 0))
@@ -240,8 +240,9 @@ def test_device_index_from_jax_equals_prepare():
     nprng = np.random.default_rng(17)
     read_hashes = np.sort(nprng.integers(1, 1 << 62, 300).astype(np.uint64))
     idx = _synthetic_index(nprng, read_hashes, miss=0.25)
-    own = prepare_device_index(idx, CPU)
-    carried = device_index_from_jax(jprep(idx), CPU)
+    own = prepare_device_index(convert.index_arrays(convert.as_dict(idx)),
+                               CPU)
+    carried = convert.device_index(convert.as_dict(jprep(idx)), CPU)
     np.testing.assert_array_equal(own.unique_hashes, carried.unique_hashes)
     for name in ("row_id", "row_parent", "row_child", "euler_in",
                  "euler_out"):
@@ -268,4 +269,4 @@ def test_prepare_rejects_non_preorder_tree():
     idx = _synthetic_index(nprng, read_hashes)
     idx.parent_index = np.array([0, 0, 0, 1, 1, 0, 4, 4, 6], np.uint32)
     with pytest.raises(ValueError):
-        prepare_device_index(idx, CPU)
+        prepare_device_index(convert.index_arrays(convert.as_dict(idx)), CPU)

@@ -21,7 +21,10 @@ from panmap_tpu.place.engine import (
     sketch_reads,
 )
 from panmap_tpu.place.query_tpu import TpuPlacer
-from panmap_tpu_torch.place.engine_torch import device_index_from_jax
+from panmap_tpu_torch import convert
+from panmap_tpu_torch.index.builder import IndexArrays as PortIndexArrays
+from panmap_tpu_torch.place.engine import ReadSketch as PortReadSketch
+from panmap_tpu_torch.place.engine import score_nodes as port_score_nodes
 from panmap_tpu_torch.place.query_torch import TorchPlacer
 
 from test_tpu_paths import _synthetic_index, random_dna
@@ -30,8 +33,23 @@ CPU = torch.device("cpu")
 ROUTES = ["sparse", "full_stream"]
 
 
+def _port(jidx):
+    """The JAX package's IndexArrays as the port's own class (state crosses
+    as a dict: neither package's class is the other's)."""
+    idx = convert.index_arrays(convert.as_dict(jidx))
+    assert isinstance(idx, PortIndexArrays)
+    return idx
+
+
+def _psk(sk):
+    """The JAX package's ReadSketch as the port's."""
+    out = convert.read_sketch(convert.as_dict(sk))
+    assert isinstance(out, PortReadSketch)
+    return out
+
+
 def _placer(idx, route, **kw):
-    p = TorchPlacer(idx, CPU, **kw)
+    p = TorchPlacer(_port(idx), CPU, **kw)
     if route == "full_stream":
         p.RCAP_MAX = 0
     return p
@@ -68,11 +86,13 @@ def test_place_exact_matches_host_engine_and_jax(route):
         for fl in (False, True):
             sk_ = prepare_read_sketch(freq, 19, n, min_read_support=ms)
             exact = score_nodes(idx, sk_, force_leaf=fl)
-            got = placer.place_exact(sk_, force_leaf=fl)
+            got = placer.place_exact(_psk(sk_), force_leaf=fl)
             ref = jax_placer.place_exact(sk_, force_leaf=fl)
             assert got is not None and ref is not None, (ms, fl)
             _same(got, exact, (ms, fl))
             _same(got, ref, (ms, fl))
+            _same(port_score_nodes(_port(idx), _psk(sk_), force_leaf=fl),
+                  exact, (ms, fl, "port host engine"))
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -86,21 +106,22 @@ def test_place_exact_zero_wc_denominator(route):
     sk_ = prepare_read_sketch(freq, 19, n, min_read_support=1)
     exact = score_nodes(idx, sk_)
     assert exact.best_score["weighted_containment"] == 0.0
-    got = _placer(idx, route).place_exact(sk_)
+    got = _placer(idx, route).place_exact(_psk(sk_))
     assert got is not None
     _same(got, exact, route)
 
 
 def test_scores_the_jax_index_tensors():
     """A placer over the JAX package's DeviceIndex, carried across by
-    device_index_from_jax, places exactly like the port's own upload."""
+    convert.device_index, places exactly like the port's own upload."""
     from panmap_tpu.place.engine_tpu import prepare_device_index as jprep
 
     idx, freq, n = _small_case(17, 24, 7)
     sk_ = prepare_read_sketch(freq, 19, n, min_read_support=1)
-    own = TorchPlacer(idx, CPU).place_exact(sk_)
-    carried = TorchPlacer(idx, CPU, dev=device_index_from_jax(jprep(idx), CPU))
-    _same(carried.place_exact(sk_), own, "carried")
+    own = TorchPlacer(_port(idx), CPU).place_exact(_psk(sk_))
+    carried = TorchPlacer(_port(idx), CPU, dev=convert.device_index(
+        convert.as_dict(jprep(idx)), CPU))
+    _same(carried.place_exact(_psk(sk_)), own, "carried")
     _same(own, score_nodes(idx, sk_), "host")
 
 
@@ -142,7 +163,7 @@ def test_place_exact_large_index_stress(route):
     idx, freq = _stress_index()
     sk_ = prepare_read_sketch(freq, 19, 100000, min_read_support=1)
     exact = score_nodes(idx, sk_)
-    got = _placer(idx, route).place_exact(sk_)
+    got = _placer(idx, route).place_exact(_psk(sk_))
     if got is not None:
         _same(got, exact, route)
 
@@ -153,8 +174,8 @@ def test_place_exact_closure_guard_refuses_bad_candidate_set():
     idx, freq, n = _small_case(59, 24, 0)
     sk_ = prepare_read_sketch(freq, 19, n, min_read_support=1)
     exact = score_nodes(idx, sk_)
-    placer = TorchPlacer(idx, CPU)
-    got = placer.place_exact(sk_)
+    placer = TorchPlacer(_port(idx), CPU)
+    got = placer.place_exact(_psk(sk_))
     assert got is not None and got.best_index == exact.best_index
     inner = placer._score_sparse_dispatch
     victim = exact.best_index[METRICS[0]]
@@ -169,7 +190,7 @@ def test_place_exact_closure_guard_refuses_bad_candidate_set():
         return cand, best, col
 
     placer._score_sparse_dispatch = tampered
-    assert placer.place_exact(sk_) is None
+    assert placer.place_exact(_psk(sk_)) is None
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -208,7 +229,7 @@ def test_place_exact_adversarial_sweep(route):
         sk_ = prepare_read_sketch(freq, 19, 5000, min_read_support=1)
         exact = score_nodes(idx, sk_)
         placer = _placer(idx, route)
-        got = placer.place_exact(sk_)
+        got = placer.place_exact(_psk(sk_))
         if NN <= placer.WITNESS_J:
             assert got is not None, (seed, NN)
         if route == "sparse":

@@ -173,13 +173,16 @@ def test_aligner_cigar_overflow_oracle_identical(monkeypatch, deferred_async):
     import functools
 
     import panmap_tpu.native as native
+    import panmap_tpu_torch.native as port_native
     from panmap_tpu.align.batch import BatchAligner
 
     if get_lib() is None:
         pytest.skip("native library unavailable")
-    # a 2-op capacity makes every read with an indel overflow
-    monkeypatch.setattr(native, "align_sr_native", functools.partial(
-        native.align_sr_native, cigar_cap=2))
+    # a 2-op capacity makes every read with an indel overflow, in each
+    # package's own native library
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "align_sr_native", functools.partial(
+            mod.align_sr_native, cigar_cap=2))
     ref, reads = _reads(41, 60)
     host = BatchAligner(ref)
     host.pallas_mode = None
