@@ -7,7 +7,9 @@ and for long reads at the size of a SARS-CoV-2 Nanopore run, checking every
 output byte for byte against the port's own run with the kernels' plain
 versions; then metagenomic abundance (--meta) at the size of the
 reference's demo 2, its scores held bit-equal to the host scorer and its
-abundances to the demo's own gates.
+abundances to the demo's own gates; then read assignment (--meta
+--filter-and-assign) at the shape of the reference's demo 3, batch mode
+over a manifest of 8 samples, and the pileup tally on the card.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
@@ -61,7 +63,34 @@ Phases, one line each with its time:
      (--em-candidates) on the card and with --em-f64: gate B, every
      proportion within 2e-4.  Launch counts of both kernels read 0 over the meta runs: this
      path runs neither
- 11. neither jax nor any module of panmap_tpu was imported; the count of
+ 11. read assignment on the card (the port's run_meta with
+     filter_and_assign and demo 3's options plus --jplace, --breadth-ratio,
+     the filtered scores TSV and the taxonomy at the species rank) on the
+     whole assign workload: the batched scorer's route taken; then the
+     sample's first 40,000 reads on that route on the card and on the
+     --host-score route, the replay DFS (breadths.out and the scores TSV
+     byte-equal; the FASTQ, both .out and both .jplace files equal as
+     assignments: the two routes write the same records in another order,
+     in the JAX package too); then the whole sample's
+     TorchMetaScorer.assignment_pass, as run_meta called it on the card,
+     against the same call on CPU tensors, the four values equal, with its
+     wall and the scorers' set-up as run_meta paid them, the pairs copied
+     and the nonzero syncs it counted, peak device memory (of the whole
+     run, and of the pass alone above what the scorer holds) and its top
+     device ops (torch.profiler)
+ 12. batch mode on the card: the short workload's reads dealt into 8
+     samples, through run_batch with the index and tree in memory (a pool
+     of forked host workers): one TorchPlacer built (one index upload),
+     exit code 0, every sample's five outputs byte-equal to the same
+     sample through the single-sample stages on the card; the same
+     manifest with one prefix that cannot be made: exit code 1, that
+     sample failed, the others still match; a manifest of one sample runs
+     in process and launches the SW kernel once, and that launch's scores
+     equal the plain version's on the same inputs
+ 13. the pileup tally: tally_columns_device on the card on the grouped
+     entries phase 5's genotyping gave it, equal to the numpy bincounts,
+     its time beside theirs (phases 5 and 8 tally on the card)
+ 14. neither jax nor any module of panmap_tpu was imported; the count of
      the port's modules that were
 
 The JAX package itself is not driven here: tests/test_torch_*.py hold the
@@ -72,8 +101,11 @@ tree nodes, ~2.42 M index rows and a 29,903 bp genome for both; 51,169 read
 pairs of 150 bp for the short-read path; 5,000 single-end ONT-like reads of
 1,000-1,400 bp for the long-read path; for --meta five haplotypes of a
 29,903 bp genome at 0.40 / 0.25 / 0.15 / 0.12 / 0.08, 200,000 read pairs of
-150 bp and a 39,999-node meta index.  The last three lines are a JSON line
-of the meta readings, a JSON line listing the kernels and the result line;
+150 bp and a 39,999-node meta index; for read assignment 400 species of
+25 nodes with a 16.5 kb genome each (10,191 nodes) and 250,000 single-end
+ancient-DNA-like reads of 35-120 bp.  The last lines are a JSON line of the
+meta readings, one of this slice's readings (assign, batch, tally), a JSON
+line listing the kernels and the result line;
 any failure raises (exit code != 0) and prints no result.  Needs one CUDA
 card; exits non-zero without one.
 """
@@ -81,6 +113,7 @@ card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
 import json
 import os
@@ -230,7 +263,8 @@ def placement_phase(tp, TorchPlacer, w, cfg, dev, cpu):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sk, _ = tp.read_sketch(cfg, w.idx)
     t1 = time.perf_counter()
-    exact = tp.place(replace(cfg, device_place=False), w.idx, sk, dev)
+    exact = tp.place_async(replace(cfg, device_place=False), w.idx, sk,
+                           dev)()
     host_s = time.perf_counter() - t1
     t1 = time.perf_counter()
     placer = TorchPlacer(w.idx, dev)
@@ -284,7 +318,7 @@ def run_stages(tp, w, cfg, device, stats):
                                              prefetch=prefetch, stats=stats)
     walls["align"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    final = tp.run_genotyping(cfg, w.idx, ref, best, placed)
+    final = tp.run_genotyping(cfg, w.idx, ref, best, placed, device)
     bam_join()
     walls["genotype+bam"] = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -305,11 +339,15 @@ def same_outputs(a, b, what):
     return sizes
 
 
-def pipeline_cfg(tp, w, out, name, log=None):
+def pipeline_cfg(tp, w, out, name, log=None, reads=None):
+    """--device-pileup stays auto: the tally runs on a CUDA device and on
+    the host for CPU tensors.  ``reads``: a (reads1, reads2) pair in place
+    of the workload's."""
     os.makedirs(os.path.join(out, name), exist_ok=True)
+    reads1, reads2 = reads or (w.reads1, w.reads2)
     return tp.PipelineConfig(
-        panman="synthetic", reads1=w.reads1, reads2=w.reads2,
-        output=os.path.join(out, name, "sample"), device_pileup="off",
+        panman="synthetic", reads1=reads1, reads2=reads2,
+        output=os.path.join(out, name, "sample"),
         log=log or (lambda *a, **k: None))
 
 
@@ -317,7 +355,8 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
     """The pipeline on ``dev`` with the SW launch count reset just before and
     the kernel's main-path inputs captured, then on CPU tensors; the five
     outputs must be byte-equal.  Returns (report, launches, captured
-    [(q, r, qlens, out)])."""
+    [(q, r, qlens, out)], the arguments genotyping gave the device tally,
+    the device run's wall)."""
     captured = []
     launch = sw.banded_sw_scores
 
@@ -326,14 +365,27 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
         captured.append((q, r, qlens, res))
         return res
 
+    from panmap_tpu_torch.genotype import caller
+
+    tally, tallied = caller.tally_columns_device, []
+
+    def capturing_tally(*args):
+        tallied.append(args)
+        return tally(*args)
+
     cfg, stats = pipeline_cfg(tp, w, out, "device"), {}
     sw.banded_sw_scores = capturing
+    caller.tally_columns_device = capturing_tally
     sw.LAUNCHES = 0
     try:
         best, n_reads, final, walls, _ = run_stages(tp, w, cfg, dev, stats)
     finally:
         sw.banded_sw_scores = launch
+        caller.tally_columns_device = tally
     launches = sw.LAUNCHES
+    if len(tallied) != 1 or str(tallied[0][-1]) != str(dev):
+        raise AssertionError(f"the pileup tally ran {len(tallied)} time(s) "
+                             f"on the device")
     if launches == 0 or stats["device_scored"] == 0:
         raise AssertionError(f"the pipeline never launched the SW kernel "
                              f"(launches {launches}, stats {stats})")
@@ -346,16 +398,18 @@ def pipeline_phase(tp, sw, w, out, dev, cpu):
     cpu_wall = time.perf_counter() - t1
     if cbest != best or cstats != stats:
         raise AssertionError(f"CPU run: {cbest} {cstats} vs {best} {stats}")
-    sizes = same_outputs(cfg.output, ccfg.output, "the CPU-tensor run")
+    sizes = same_outputs(cfg.output, ccfg.output, "the CPU-tensor run "
+                         "(host tally)")
     shapes = [tuple(q.shape) + (r.shape[1],) for q, r, _, _ in captured]
     report = (f"pipeline on {n_reads} reads -> {best}: "
               + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
               + f"; SW launches {launches}, deferred {stats['deferred']}, "
               f"device-scored {stats['device_scored']}, survivors "
               f"{stats['survivors']}, shapes (B, LQ, LW) {shapes}; "
-              f"{len(final)} variants; byte-equal to the CPU-tensor run "
+              f"{len(final)} variants; pileup tally on the card; "
+              f"byte-equal to the CPU-tensor run with the host tally "
               f"({cpu_wall:.2f}s): " + ", ".join(sizes))
-    return report, launches, captured
+    return report, launches, captured, tallied[0], walls["total"]
 
 
 def long_items(rng, n, lq_lo=600, lq_hi=3000, w_lo=801, w_hi=2401):
@@ -818,6 +872,427 @@ def meta_pipeline_phase(td, w, out, dev, f64_pairs=20000):
     return report, readings
 
 
+ASSIGN_BYTE_EQUAL = ("mgsr.breadths.out", "read_scores_info.filtered.tsv")
+ASSIGN_OUT = ("mgsr.assignedReads.out", "mgsr.assignedReadsLCANode.out")
+ASSIGN_JPLACE = ("mgsr.assignedReads.jplace",
+                 "mgsr.assignedReadsLCANode.jplace")
+ASSIGN_FILES = (("mgsr.assignedReads.fastq",) + ASSIGN_OUT + ASSIGN_JPLACE
+                + ASSIGN_BYTE_EQUAL)
+
+
+def assign_cfg(td, w, out, name, lines, reads1=None, **kw):
+    """demo 3's options (tools/check_examples.sh: -k 15 -s 8 -l 1 --discard
+    0.6 --dust 5, a taxonomy, --breadth-ratio) plus --jplace and the
+    filtered scores TSV, at the species rank; ``lines`` collects
+    (seconds since now, log line)."""
+    os.makedirs(os.path.join(out, name), exist_ok=True)
+    t0 = time.perf_counter()
+    return td.MetaConfig(
+        panman="synthetic", reads1=reads1 or w.reads1,
+        output=os.path.join(out, name, "sample"), k=15, s=8, l=1,
+        filter_and_assign=True, discard=0.6, dust=5,
+        taxonomy_path=w.taxonomy, taxonomic_rank="species",
+        breadth_ratio=True, jplace=True, write_read_scores_filtered=True,
+        log=lambda m, *a, **k: lines.append((time.perf_counter() - t0, m)),
+        **kw)
+
+
+def assignment_view(prefix):
+    """The assignment outputs under ``prefix`` free of their record order:
+    the FASTQ's records sorted, each .out line as node names -> (taxa, the
+    sorted names of its reads), each .jplace as (tree, fields, read name ->
+    its sorted placements)."""
+    with open(prefix + ".mgsr.assignedReads.fastq") as fh:
+        lines = fh.read().split("\n")
+    recs = list(zip(lines[0::4], lines[1::4], lines[3::4]))[:len(lines) // 4]
+    names = [r[0][1:] for r in recs]
+    view = {"reads": sorted(recs)}
+    for ext in ASSIGN_OUT:
+        table = {}
+        with open(f"{prefix}.{ext}") as fh:
+            for ln in fh:
+                nodes, taxa, count, idxs = ln.rstrip("\n").split("\t")
+                reads = sorted(names[int(i)] for i in idxs.split(","))
+                if int(count) != len(reads) or nodes in table:
+                    raise AssertionError(f"{ext}: malformed line for {nodes}")
+                table[nodes] = (taxa, reads)
+        view[ext] = table
+    for ext in ASSIGN_JPLACE:
+        with open(f"{prefix}.{ext}") as fh:
+            jp = json.load(fh)
+        view[ext] = (jp["tree"], jp["fields"],
+                     {tuple(pl["n"]): sorted(map(tuple, pl["p"]))
+                      for pl in jp["placements"]})
+    return view
+
+
+@contextlib.contextmanager
+def timed_methods(calls, sync, *targets):
+    """For the block, every (class, method name) of ``targets`` is wrapped:
+    each call appends (its positional arguments with self first, arrays
+    copied as they were at the call, its result, its seconds with the
+    device drained) to calls["Class.method"]."""
+    import numpy as np
+
+    def wrap(key, real):
+        def method(*args, **kw):
+            args = tuple(a.copy() if isinstance(a, np.ndarray) else a
+                         for a in args)
+            t0 = time.perf_counter()
+            res = real(*args, **kw)
+            sync()
+            calls.setdefault(key, []).append(
+                (args, res, time.perf_counter() - t0))
+            return res
+        return method
+
+    saved = [(cls, name, getattr(cls, name)) for cls, name in targets]
+    for cls, name, real in saved:
+        setattr(cls, name, wrap(f"{cls.__name__}.{name}", real))
+    try:
+        yield
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+
+
+def assign_phase(td, w, out, dev, cpu, sub_reads=40000, min_reads=2000):
+    """Phase 11 (see the module docstring).  Returns (report, readings)."""
+    import numpy as np
+    import torch
+
+    from panmap_tpu_torch.meta.engine import MetaScorer
+    from panmap_tpu_torch.meta.engine_torch import TorchMetaScorer
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def run(name, device, **kw):
+        lines = []
+        cfg = assign_cfg(td, w, out, name, lines, **kw)
+        t0 = time.perf_counter()
+        if td.run_meta(cfg, midx=w.midx, device=device) != 0:
+            raise AssertionError(f"run_meta ({name}) failed")
+        sync()
+        wall = time.perf_counter() - t0
+        fast = bool([m for _, m in lines if "batched scoring" in m])
+        if fast == bool(kw.get("host_score")):
+            raise AssertionError(f"{name}: took the "
+                                 f"{'batched' if fast else 'replay'} route")
+        return cfg.output, lines, wall
+
+    # the whole sample on the card, the batched scorer's route, with the
+    # scorers' set-up and both device passes timed where run_meta calls them
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    calls = {}
+    with timed_methods(calls, sync, (MetaScorer, "__init__"),
+                       (TorchMetaScorer, "__init__"),
+                       (TorchMetaScorer, "score_all"),
+                       (TorchMetaScorer, "assignment_pass")):
+        full, lines, wall = run("assign", dev)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    if any(len(v) != 1 for v in calls.values()) or len(calls) != 4:
+        raise AssertionError(f"assign: scorer calls "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
+    split = dict(tree_collapse_s=calls["MetaScorer.__init__"][0][2],
+                 events_prep_upload_s=calls["TorchMetaScorer.__init__"][0][2],
+                 score_all_s=calls["TorchMetaScorer.score_all"][0][2])
+    (fast, *pass_args), got, pass_s = calls[
+        "TorchMetaScorer.assignment_pass"][0]
+    pairs = fast.pairs_copied
+    at = {key: t for t, m in lines for key in (
+        "batch 1:", "batched scoring", "read_scores_info", "reads written",
+        "jplace outputs", "breadths.out") if key in m}
+    uniq = next(m for _, m in lines if "unique sets" in m).split()
+    n_in, n_unique, n_dust = int(uniq[3]), int(uniq[6]), int(uniq[9][1:])
+    n_assigned = int(next(m for _, m in lines
+                          if "reads written" in m).split()[1])
+    if n_in != w.n_reads or n_unique < min_reads or not (
+            0.5 * w.n_target <= n_assigned <= w.n_target):
+        raise AssertionError(f"assign: {n_in} reads, {n_unique} unique, "
+                             f"{n_assigned} assigned of {w.n_target} drawn "
+                             f"from the taxa")
+    stages = dict(
+        read_dust_sketch_s=at["batch 1:"],
+        events_prep_score_s=at["batched scoring"] - at["batch 1:"],
+        assign_write_s=at["reads written"] - at["batched scoring"],
+        jplace_s=at["jplace outputs"] - at["reads written"],
+        breadth_s=at["breadths.out"] - at["jplace outputs"])
+
+    # the first reads on both routes (CPU tensors: the whole sample's
+    # assignment_pass below)
+    head = head_fastq(w.reads1, os.path.join(out, "assign_head.fastq"),
+                      sub_reads)
+    on_card, _, card_wall = run("assign_head", dev, reads1=head)
+    on_host, _, host_wall = run("assign_head_host", dev, reads1=head,
+                                host_score=True)
+    sizes = [f"{ext} {os.path.getsize(f'{on_card}.{ext}')} B"
+             for ext in ASSIGN_FILES]
+    for ext in ASSIGN_BYTE_EQUAL:
+        if not filecmp.cmp(f"{on_card}.{ext}", f"{on_host}.{ext}",
+                           shallow=False):
+            raise AssertionError(f"assign: {ext} differs from the replay DFS")
+    a, b = assignment_view(on_card), assignment_view(on_host)
+    for key in a:
+        if a[key] != b[key]:
+            raise AssertionError(f"assign: {key} differs from the replay DFS")
+    n_sub = len(a["reads"])
+    n_lca_nodes = len(a[ASSIGN_OUT[1]])
+    if n_sub == 0 or len(a[ASSIGN_OUT[0]]) < 10:
+        raise AssertionError("assign: nothing assigned on the subset")
+
+    # the whole batch's assignment_pass, as run_meta called it on the card,
+    # against the same call on CPU tensors
+    t0 = time.perf_counter()
+    on_cpu_tensors = TorchMetaScorer(w.midx, fast.reads, cpu)
+    cpu_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = on_cpu_tensors.assignment_pass(*pass_args)
+    cpu_pass_s = time.perf_counter() - t0
+    del on_cpu_tensors
+    if (list(got[0].items()) != list(want[0].items())
+            or len(got[1]) != len(want[1])
+            or any(r != q or not np.array_equal(x, y)
+                   for (r, x), (q, y) in zip(got[1], want[1]))
+            or not np.array_equal(got[2], want[2])
+            or not all(np.array_equal(x, y)
+                       for x, y in zip(got[3], want[3]))):
+        raise AssertionError("assignment_pass on the card != on CPU tensors")
+    if cuda:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        kern_ms, top = device_kernel_ms(
+            lambda: fast.assignment_pass(*pass_args), top=5)
+        pass_peak = torch.cuda.max_memory_allocated() / 2**20
+    else:
+        kern_ms, top, held, pass_peak = 0.0, "no device", 0.0, 0.0
+    live = int((pass_args[1] > 0).sum())
+    blocks = -(-live // fast.READ_CHUNK)
+    chunks = sum(1 for lo in fast._chunk_lo if lo < fast.n_nodes)
+    readings = dict(
+        nodes=len(w.midx.node_ids), index_rows=w.n_rows,
+        seeds=len(w.midx.seed_hash), reads=n_in, low_complexity=n_dust,
+        unique_read_sets=n_unique, target_reads=w.n_target,
+        assigned=n_assigned, wall_s=wall, peak_device_mib=peak,
+        pass_held_device_mib=held, pass_peak_device_mib=pass_peak, **stages,
+        head_reads=sub_reads, head_assigned=n_sub, head_card_s=card_wall,
+        head_host_route_s=host_wall,
+        pass_live_reads=live,
+        pass_chunks=chunks, pass_blocks=blocks, pass_syncs=fast.nonzero_syncs,
+        pass_pairs_copied=pairs, pass_wall_s=pass_s,
+        pass_cpu_tensor_s=cpu_pass_s, cpu_tensor_setup_s=cpu_setup_s,
+        pass_kernel_ms=kern_ms, bitmap_rows=fast.n_rows, slots=fast.n_slots,
+        events=len(fast.ev_pos), **split)
+    report = (
+        f"run_meta --filter-and-assign on {n_in} reads over "
+        f"{len(w.midx.node_ids)} nodes / {w.n_rows} index rows: batched "
+        f"scorer's route, {n_dust} low-complexity, {n_unique} unique read "
+        f"sets, {n_assigned} reads assigned of {w.n_target} drawn from "
+        f"{len(w.taxa)} taxa; wall {wall:.2f}s = "
+        + ", ".join(f"{k[:-2]} {v:.2f}s" for k, v in stages.items())
+        + " (of events_prep_score: "
+        + ", ".join(f"{k[:-2]} {v:.2f}s" for k, v in split.items())
+        + f", assignment_pass {pass_s:.3f}s); peak device memory {peak:.0f} MiB; first {sub_reads} reads "
+        f"({n_sub} assigned, {n_lca_nodes} LCA nodes): card {card_wall:.2f}s ("
+        + ", ".join(sizes) + f") == replay DFS (--host-score, "
+        f"{host_wall:.2f}s) as assignments and on "
+        f"{' and '.join(ASSIGN_BYTE_EQUAL)} byte for byte; the whole "
+        f"sample's assignment_pass ({live} read sets with eff > 0, bitmap "
+        f"{fast.n_rows} x {fast.NODE_CHUNK}, {fast.n_slots} slots, {chunks} "
+        f"chunks x {blocks} blocks, {fast.nonzero_syncs} nonzero syncs "
+        f"counted, "
+        f"{pairs} pairs copied; {held:.0f} MiB held before the pass, "
+        f"{pass_peak:.0f} MiB at its peak): card {pass_s:.3f}s == CPU tensors "
+        f"{cpu_pass_s:.2f}s (their set-up {cpu_setup_s:.2f}s) on the four "
+        f"values; device kernels {kern_ms:.2f} ms: {top}")
+    return report, readings
+
+
+def split_fastq(src, dst_pattern, n_parts):
+    """``src``'s records dealt into ``n_parts`` files of consecutive
+    records; returns their paths."""
+    with open(src) as fh:
+        lines = fh.readlines()
+    per = -(-(len(lines) // 4) // n_parts)
+    paths = []
+    for k in range(n_parts):
+        paths.append(dst_pattern.format(k))
+        with open(paths[-1], "w") as fh:
+            fh.writelines(lines[4 * k * per:4 * (k + 1) * per])
+    return paths
+
+
+def batch_phase(tp, sw, w, out, dev, n_samples=8):
+    """Phase 12 (see the module docstring).  Returns (report, readings, the
+    one-sample run's SW launches, their captured [(q, r, qlens, out)])."""
+    r1 = split_fastq(w.reads1, os.path.join(out, "batch_s{}_R1.fastq"),
+                     n_samples)
+    r2 = split_fastq(w.reads2, os.path.join(out, "batch_s{}_R2.fastq"),
+                     n_samples)
+    samples = list(zip(r1, r2))
+    singles, single_walls = [], []
+    for k, reads in enumerate(samples):
+        cfg = pipeline_cfg(tp, w, out, f"batch_single_{k}", reads=reads)
+        *_, walls, _ = run_stages(tp, w, cfg, dev, {})
+        singles.append(cfg.output)
+        single_walls.append(walls["total"])
+
+    def manifest(name, picks, prefixes):
+        path = os.path.join(out, name + ".txt")
+        with open(path, "w") as fh:
+            for k, prefix in zip(picks, prefixes):
+                fh.write(f"{samples[k][0]} {samples[k][1]} {prefix}\n")
+        return path
+
+    class CountingPlacer(tp.TorchPlacer):
+        built = 0
+
+        def __init__(self, *a, **k):
+            CountingPlacer.built += 1
+            super().__init__(*a, **k)
+
+    def run(name, picks, prefixes):
+        lines = []
+        cfg = tp.PipelineConfig(
+            panman="synthetic", batch_file=manifest(name, picks, prefixes),
+            log=lambda m, *a, **k: lines.append(m))
+        CountingPlacer.built = 0
+        real, tp.TorchPlacer = tp.TorchPlacer, CountingPlacer
+        try:
+            t0 = time.perf_counter()
+            rc = tp.run_batch(cfg, device=dev, idx=w.idx, tree=w.tree)
+            wall = time.perf_counter() - t0
+        finally:
+            tp.TorchPlacer = real
+        if CountingPlacer.built != 1:
+            raise AssertionError(f"batch {name}: {CountingPlacer.built} "
+                                 f"TorchPlacers built (index uploads)")
+        return rc, lines, wall
+
+    every = list(range(n_samples))
+    prefixes = [os.path.join(out, "batch", f"s{k}", "sample") for k in every]
+    rc, lines, wall = run("batch", every, prefixes)
+    pool = [x for x in lines if "forked workers" in x]
+    if rc != 0 or not pool:
+        raise AssertionError(f"batch: exit code {rc}, log {lines}")
+    for k in every:
+        same_outputs(prefixes[k], singles[k], f"sample {k}'s single run")
+
+    # one prefix lies under a regular file: that sample fails alone
+    blocker = os.path.join(out, "batch_blocker")
+    with open(blocker, "w") as fh:
+        fh.write("a file, not a directory\n")
+    bad = n_samples // 2
+    prefixes2 = [os.path.join(out, "batch_bad", f"s{k}", "sample")
+                 for k in every]
+    prefixes2[bad] = os.path.join(blocker, "sub", "sample")
+    rc2, lines2, _ = run("batch_bad", every, prefixes2)
+    failed = [x for x in lines2 if "FAILED" in x]
+    if rc2 != 1 or len(failed) != 1 or f"[{bad + 1}/" not in failed[0]:
+        raise AssertionError(f"batch with a bad prefix: exit code {rc2}, "
+                             f"log {lines2}")
+    for k in every:
+        if k != bad:
+            same_outputs(prefixes2[k], singles[k],
+                         f"sample {k}'s single run")
+
+    # one sample: in process, on the card, the SW kernel included, its
+    # launch captured as pipeline_phase captures the main path's
+    captured = []
+    launch = sw.banded_sw_scores
+
+    def capturing(q, r, qlens):
+        res = launch(q, r, qlens)
+        captured.append((q, r, qlens, res))
+        return res
+
+    one = os.path.join(out, "batch_one", "sample")
+    sw.banded_sw_scores = capturing
+    sw.LAUNCHES = 0
+    try:
+        rc1, lines1, one_wall = run("batch_one", [0], [one])
+    finally:
+        sw.banded_sw_scores = launch
+    launches = sw.LAUNCHES
+    if len(captured) != launches:
+        raise AssertionError(f"one-sample batch: {len(captured)} calls of "
+                             f"the SW wrapper, {launches} launches")
+    if rc1 != 0 or launches != 1 or [x for x in lines1
+                                     if "forked workers" in x]:
+        raise AssertionError(f"one-sample batch: exit code {rc1}, SW "
+                             f"launches {launches}, log {lines1}")
+    same_outputs(one, singles[0], "sample 0's single run")
+    readings = dict(samples=n_samples, batch_wall_s=wall,
+                    single_walls_s=single_walls,
+                    sum_single_walls_s=sum(single_walls),
+                    index_uploads=CountingPlacer.built,
+                    one_sample_wall_s=one_wall,
+                    one_sample_sw_launches=launches)
+    report = (f"run_batch on {n_samples} samples of {w.n_reads // n_samples} "
+              f"reads: exit code 0, 1 TorchPlacer built (1 index upload), "
+              f"wall {wall:.2f}s beside {sum(single_walls):.2f}s for the "
+              f"{n_samples} single-sample runs on the card (each its own "
+              f"upload; {min(single_walls):.2f}-{max(single_walls):.2f}s); "
+              f"{pool[0]}; every sample's five outputs byte-equal to its "
+              f"single run; with sample {bad + 1}'s prefix under a regular "
+              f"file: exit code 1, that sample FAILED, the other "
+              f"{n_samples - 1} byte-equal; one sample in process: "
+              f"{one_wall:.2f}s, SW kernel launches {launches}, byte-equal")
+    return report, readings, launches, captured
+
+
+def tally_phase(args, dev, reps=5):
+    """Phase 13: tally_columns_device on ``dev`` on the grouped entries the
+    short pipeline's genotyping gave it (col_id, g_q, g_s, g_b, ncol),
+    against the numpy bincounts of genotype.caller._pileup_finish.  Both
+    timed as the pipeline calls them: host arrays in, host arrays out."""
+    import numpy as np
+    import torch
+
+    from panmap_tpu_torch.genotype.caller import tally_columns_device
+
+    col_id, g_q, g_s, g_b, ncol = args[:5]
+
+    def host():
+        v = g_b < 4
+        f, r = v & (g_s == 0), v & (g_s == 1)
+        return (np.bincount(col_id * 5 + np.minimum(g_b, 4),
+                            minlength=ncol * 5).reshape(ncol, 5),
+                np.bincount(col_id[v] * 4 + g_b[v],
+                            weights=g_q[v].astype(np.float64),
+                            minlength=ncol * 4).reshape(ncol, 4),
+                np.bincount(col_id[f] * 4 + g_b[f],
+                            minlength=ncol * 4).reshape(ncol, 4),
+                np.bincount(col_id[r] * 4 + g_b[r],
+                            minlength=ncol * 4).reshape(ncol, 4))
+
+    def card():
+        return tally_columns_device(col_id, g_q, g_s, g_b, ncol, dev)
+
+    got, want = card(), host()
+    for name, a, b in zip(("BCF", "QS", "ADF", "ADR"), got, want):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"device tally {name} != numpy bincounts")
+    times = []
+    for fn in (card, host):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / reps)
+    readings = dict(entries=len(col_id), columns=int(ncol),
+                    device_ms=times[0], numpy_ms=times[1])
+    report = (f"tally_columns_device on the card == numpy bincounts on the "
+              f"short pipeline's {len(col_id)} grouped entries over {ncol} "
+              f"columns (BCF, QS, ADF, ADR; types too): card {times[0]:.3f} "
+              f"ms (upload, 4 index_add_, 4 copies back), numpy "
+              f"{times[1]:.3f} ms, mean of {reps}")
+    return report, readings
+
+
 def long_phases(args, tp, long_dp, rng, dev):
     """Phases 7 and 8.  Returns (launches on the main path, kernel ms over
     them, plain ms, max |diff|, band cells, (bound ms, what bounds it))."""
@@ -870,7 +1345,8 @@ def main(argv=None):
     from panmap_tpu_torch.align import long_dp, sw
     from panmap_tpu_torch.meta import driver as td
     from panmap_tpu_torch.place.query_torch import TorchPlacer
-    from panmap_tpu_torch.synthetic import make_meta_workload, make_workload
+    from panmap_tpu_torch.synthetic import (make_assign_workload,
+                                            make_meta_workload, make_workload)
 
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
@@ -935,7 +1411,8 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.1f}s")
 
     # 5. the pipeline on the card, then on CPU tensors
-    report, launches, captured = pipeline_phase(tp, sw, w, args.out, dev, cpu)
+    report, launches, captured, tallied, _ = pipeline_phase(
+        tp, sw, w, args.out, dev, cpu)
     log(f"[5] {report}")
 
     # the kernel against its plain version on the main path's own inputs
@@ -991,7 +1468,48 @@ def main(argv=None):
         f"{sw.LAUNCHES}, banded_long {long_dp.LAUNCHES}; "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # 11. no jax and nothing of the JAX package anywhere
+    # 11. read assignment on the card; neither kernel is on it
+    t0 = time.perf_counter()
+    aw = make_assign_workload(os.path.join(args.out, "assign_reads"),
+                              seed=args.seed)
+    log(f"    assign workload: {len(aw.midx.node_ids)} nodes, {aw.n_rows} "
+        f"index rows, {len(aw.midx.seed_hash)} seeds, {aw.n_reads} reads, "
+        f"{aw.n_target} of them from {len(aw.taxa)} taxa; "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    sw.LAUNCHES = long_dp.LAUNCHES = 0
+    report, assign = assign_phase(td, aw, args.out, dev, cpu)
+    if sw.LAUNCHES or long_dp.LAUNCHES:
+        raise AssertionError("a kernel launched on the assignment path")
+    log(f"[11] {report}; {time.perf_counter() - t0:.1f}s")
+    del aw
+
+    # 12. batch mode on the card
+    t0 = time.perf_counter()
+    report, batch, batch_launches, batch_captured = batch_phase(
+        tp, sw, w, args.out, dev)
+    # the kernel against its plain version on this path's own inputs
+    for qm, rm, lm, res in batch_captured:
+        e, k_ms, p_ms = compare_sw(sw, qm, rm, lm, reps=20)
+        if e != 0 or not torch.equal(
+                res, sw.banded_sw_scores_reference(qm, rm, lm)):
+            raise AssertionError("the one-sample batch's SW scores != plain "
+                                 "version")
+        errs.append(e)
+        batch.update(one_sample_sw_shape=list(qm.shape) + [rm.shape[1]],
+                     one_sample_sw_ms=k_ms, one_sample_sw_plain_ms=p_ms)
+        report += (f"; its SW launch ({qm.shape[0]} x {qm.shape[1]} x "
+                   f"{rm.shape[1]}) == plain version, max |diff| {e}: kernel "
+                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    del batch_captured
+    log(f"[12] {report}; {time.perf_counter() - t0:.1f}s")
+
+    # 13. the pileup tally on the card
+    t0 = time.perf_counter()
+    report, tally = tally_phase(tallied, dev)
+    log(f"[13] {report}; {time.perf_counter() - t0:.1f}s")
+
+    # 14. no jax and nothing of the JAX package anywhere
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "jaxlib", "panmap_tpu")
                      or k.startswith(("jax.", "jaxlib.", "panmap_tpu.")))
@@ -999,10 +1517,11 @@ def main(argv=None):
         raise AssertionError(f"imported: {foreign[:8]}")
     n_port = sum(k == "panmap_tpu_torch" or k.startswith("panmap_tpu_torch.")
                  for k in sys.modules)
-    log(f"[11] neither jax nor panmap_tpu imported; {n_port} modules of "
+    log(f"[14] neither jax nor panmap_tpu imported; {n_port} modules of "
         f"panmap_tpu_torch loaded; total {time.perf_counter() - t_all:.1f}s")
 
     log(json.dumps({"meta": meta}))
+    log(json.dumps({"assign": assign, "batch": batch, "tally": tally}))
 
     log(json.dumps({"kernels": [{
         "name": "banded_sw",
@@ -1010,6 +1529,7 @@ def main(argv=None):
         "source": "panmap_tpu_torch/csrc/banded_sw.cu",
         "replaces": "panmap_tpu/align/pallas_sw.py:211",
         "launches": launches,
+        "launches_one_sample_batch": batch_launches,
         "max_abs_err": max(errs),
         "ms": ms_m,
         "plain_ms": plain_m,

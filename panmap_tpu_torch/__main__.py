@@ -1,12 +1,13 @@
-"""panmap_tpu_torch CLI: the single-sample pipeline and metagenomic
-abundance (--meta) on one GPU.
+"""panmap_tpu_torch CLI on one GPU: the single-sample pipeline, batch mode
+(--batch), metagenomic abundance (--meta), read assignment (--meta
+--filter-and-assign) and their batch form (--meta --batch).
 
     python -m panmap_tpu_torch [options] <panman> [reads1] [reads2]
 
 The option surface is panmap_tpu's own (build_parser is carried over
 unchanged, so both CLIs parse the same command lines).  Options whose JAX
-path runs device code this port does not have yet raise NotImplementedError
-naming their ROADMAP item; the host-only tools (--simulate, --dump-*) run
+path runs device code this port does not have yet (--mesh > 1, --dist-*,
+--profile) raise NotImplementedError; the host-only tools (--simulate, --dump-*) run
 the carried simulate.py / tools.py.
 """
 
@@ -222,11 +223,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unsupported(args):
-    if args.meta and args.filter_and_assign:
-        return ("--meta --filter-and-assign is not ported yet (ROADMAP A: "
-                "filter-and-assign)")
-    if args.meta and args.batch_file:
-        return "--meta --batch is not ported yet (ROADMAP A: batch mode)"
     if args.dist_coordinator or args.dist_nprocs or args.dist_pid >= 0:
         return "--dist-* is not ported yet (ROADMAP B7)"
     return None
@@ -359,6 +355,31 @@ def _run_meta(args, out, log):
         stop=args.stop,
         log=log,
     )
+    if args.batch_file:
+        # --batch works in both modes (main.cpp:2424-2443): meta loops the
+        # run per sample; the index (and here also the in-memory arrays)
+        # is shared across samples.
+        from dataclasses import replace as _dc_replace
+
+        from .meta.driver import ensure_meta_index
+        from .pipeline import read_batch_file
+
+        try:
+            entries = read_batch_file(args.batch_file)
+        except (OSError, FileNotFoundError) as exc:
+            log.fail("batch", str(exc))
+            return 1
+        midx, _ = ensure_meta_index(mcfg)
+        if args.stop == "index":
+            return 0
+        for i, (r1, r2, prefix) in enumerate(entries):
+            if len(entries) > 1:
+                log(f"[{i + 1}/{len(entries)}] {r1} -> {prefix}")
+            scfg = _dc_replace(mcfg, reads1=r1, reads2=r2, output=prefix)
+            rc = run_meta(scfg, midx=midx)
+            if rc:
+                return rc
+        return 0
     return run_meta(mcfg)
 
 

@@ -30,6 +30,7 @@ import os
 from collections import defaultdict
 from dataclasses import dataclass
 import numpy as np
+import torch
 
 BASES = "ACGT"
 _BIDX = {b: i for i, b in enumerate(BASES)}
@@ -533,7 +534,7 @@ def _snp_prefilter(DIAG, QS, ref_idx, g_p, gstart, ncol, spectrum):
 
 def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
                 baq: bool = False, spectrum=_NOPRUNE,
-                device_tally: bool | None = None):
+                device_tally=None):
     """reads: list[PlacedRead]. Returns list[SiteRecord] for alt-bearing sites."""
     if baq:
         from .baq import apply_baq
@@ -677,7 +678,7 @@ class ColumnarReads:
 
 def pileup_call_columnar(ref: str, cols: ColumnarReads,
                          max_depth: int = MAX_DEPTH, spectrum=_NOPRUNE,
-                         device_tally: bool | None = None):
+                         device_tally=None):
     """Columnar twin of pileup_call: the per-read python cigar walk is
     replaced by one vectorized pass over the flat cigar stream (the object
     path stays the oracle; tests assert record equality).  No PlacedRead
@@ -822,23 +823,64 @@ def pileup_call_columnar(ref: str, cols: ColumnarReads,
                           spectrum=spectrum, device_tally=device_tally)
 
 
-def resolve_device_pileup(mode: str) -> bool:
-    """--device-pileup policy.  The device tally (the JAX package's
-    tally_columns_device, a jitted scatter-add) is not ported yet, so every
-    mode resolves to the host bincounts; the pipeline refuses
-    --device-pileup on and PANMAP_TPU_DEVICE_PILEUP=1 before it gets here
-    (pipeline.check_supported, ROADMAP B4)."""
-    return False
+def resolve_device_pileup(mode: str, device):
+    """--device-pileup policy: the device the per-column tallies run on, or
+    None for the host bincounts.  "on"/"off" are explicit; "auto" tallies on
+    ``device`` when it is a CUDA device (attached to this host: dispatch is
+    microseconds) and on the host for a CPU device.  The
+    PANMAP_TPU_DEVICE_PILEUP env var (0/1) overrides for experiments."""
+    env = os.environ.get("PANMAP_TPU_DEVICE_PILEUP", "")
+    if env == "1":
+        return device
+    if env == "0":
+        return None
+    if mode == "on":
+        return device
+    if mode == "off":
+        return None
+    return device if torch.device(device).type == "cuda" else None
+
+
+def tally_columns_device(col_id, g_q, g_s, g_b, ncol, device):
+    """Device twin of the per-column tallies: base counts (BCF) [ncol, 5],
+    quality sums (QS) [ncol, 4] and strand allele depths (ADF/ADR)
+    [ncol, 4] as index_add_ over ref columns on ``device`` (reference:
+    bcftools fills these walking the pileup, conversion.cpp:83-184).  All
+    four sums are int32 (qualities are ints <= 63 and a column holds at most
+    MAX_DEPTH entries), so they are exact in any order; they come back as
+    int64 / float64 / int64 / int64, the types of the numpy bincounts in
+    _pileup_finish, which are the oracle."""
+    dev = torch.device(device)
+    cid = torch.from_numpy(np.asarray(col_id, dtype=np.int64)).to(dev)
+    q = torch.from_numpy(np.asarray(g_q, dtype=np.int32)).to(dev)
+    s = torch.from_numpy(np.asarray(g_s, dtype=np.int8)).to(dev)
+    b = torch.from_numpy(np.asarray(g_b, dtype=np.int64)).to(dev)
+    one = torch.ones(len(cid), dtype=torch.int32, device=dev)
+
+    def table(width, index, src):
+        out = torch.zeros(ncol * width, dtype=torch.int32, device=dev)
+        return out.index_add_(0, index, src).view(ncol, width).cpu().numpy()
+
+    bcf = table(5, cid * 5 + b.clamp(max=4), one)
+    v = b < 4
+    cb = cid * 4 + b
+    qs = table(4, cb[v], q[v])
+    fwd, rev = v & (s == 0), v & (s == 1)
+    adf = table(4, cb[fwd], one[fwd])
+    adr = table(4, cb[rev], one[rev])
+    return (bcf.astype(np.int64), qs.astype(np.float64),
+            adf.astype(np.int64), adr.astype(np.int64))
 
 
 def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
                    indel_events, rlens, Qcat, Scat, mqs, revs, pairedok,
                    qnames, rs_arr, indel_input=None, pair_ids=None,
-                   spectrum=_NOPRUNE, device_tally: bool | None = None):
+                   spectrum=_NOPRUNE, device_tally=None):
     """Shared pileup back half: overlap tweaks, quality shaping, per-column
     errmod + tallies, SNP calling, indel calling.  Consumed by both the
     object front-end (pileup_call) and the columnar one
-    (pileup_call_columnar)."""
+    (pileup_call_columnar).  ``device_tally`` is the device the per-column
+    tallies run on (resolve_device_pileup), None for the host bincounts."""
     records: list = []
     roffs = np.concatenate(([0], np.cumsum(rlens)))
     aqi = roffs[flat_rid] + flat_qi
@@ -886,11 +928,9 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
     capped = _cumcount(col_id) < ERRMOD_MAXN
     DIAG, BSUM, _CC = _ERRMOD.cal_columns(
         col_id[capped], g_q[capped], g_s[capped], g_b[capped], ncol)
-    if device_tally is None:
-        device_tally = resolve_device_pileup("auto")
-    if device_tally:
-        raise NotImplementedError("the device pileup tally is not ported yet "
-                                  "(ROADMAP B4)")
+    if device_tally is not None:
+        BCF, QS, ADF, ADR = tally_columns_device(col_id, g_q, g_s, g_b, ncol,
+                                                 device_tally)
     else:
         BCF = np.bincount(col_id * 5 + np.minimum(g_b, 4),
                           minlength=ncol * 5).reshape(ncol, 5)

@@ -14,8 +14,10 @@ What changes:
  - the EM is the port's run_squarem (torch EM for a device snapshot or a
    host matrix past 5 M cells, else the numpy f64 EM), or the
    numpy f64 EM at any size under --em-f64;
- - no mesh and no backend warm-up (jax programs); --mesh > 1 and
-   --filter-and-assign raise NotImplementedError.
+ - --filter-and-assign goes to meta/assign.py::run_filter_and_assign with
+   the device (its batched scorer is TorchMetaScorer.assignment_pass);
+ - no mesh and no backend warm-up (jax programs); --mesh > 1 raises
+   NotImplementedError.
 """
 
 from __future__ import annotations
@@ -125,9 +127,6 @@ def ensure_meta_index(cfg: MetaConfig, tree=None):
 def check_supported(cfg: MetaConfig):
     """Raise NotImplementedError for meta options whose device path this
     port does not have yet (each names its ROADMAP item)."""
-    if cfg.filter_and_assign:
-        raise NotImplementedError("--meta --filter-and-assign is not ported "
-                                  "yet (ROADMAP A: filter-and-assign)")
     if cfg.mesh > 1:
         raise NotImplementedError("--mesh > 1 is not ported yet (ROADMAP B7)")
 
@@ -309,7 +308,8 @@ def write_abundance(cfg: MetaConfig, midx, scorer, res) -> str:
 
 def run_meta(cfg: MetaConfig, midx=None, device=None,
              stats: dict | None = None) -> int:
-    """Abundance deconvolution of one sample; ``device`` defaults to the
+    """Abundance deconvolution of one sample, or its read assignment with
+    cfg.filter_and_assign; ``device`` defaults to the
     first CUDA device (a CPU device is for the parity tests).  A ``stats``
     dict receives the route ("device" or "host"), the stage walls in
     seconds (sketch_s, prep_s, score_s, em_s), the EM's SQUAREM steps
@@ -323,6 +323,10 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
     if cfg.stop == "index" or not cfg.reads1:
         return 0
     device = as_device(device)
+    if cfg.filter_and_assign:
+        from .assign import run_filter_and_assign
+
+        return run_filter_and_assign(cfg, midx, device)
     stats = {} if stats is None else stats
 
     t0 = time.perf_counter()

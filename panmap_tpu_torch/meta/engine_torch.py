@@ -219,3 +219,112 @@ class TorchMetaScorer:
         for ci in range(self.n_chunks):
             self.score_chunk(ci, ms, snap, cand)
         return ms.cpu().numpy(), snap
+
+    def assignment_pass(self, keep: np.ndarray, eff: np.ndarray,
+                        amb_thr: int = 0, amb_ratio: float = 0.0):
+        """Full-matrix assignment support (the assignReadsBatch DFS in closed
+        form, twin of TpuMetaScorer.assignment_pass): per read with eff > 0,
+        the kept nodes scoring == eff (max-parsimony placements) and the
+        nodes scoring >= eff - threshold (near-max, for taxonomy ambiguity).
+        Returns (assigned_by_node, near_iter, epp, (lca_lo, lca_hi)):
+        kept node -> reads, in TpuMetaScorer's insertion order (per node
+        chunk, nodes by their first read, reads ascending);
+        [(read, sorted near-max nodes)] by read; per read the count of kept
+        max-score nodes; per read the least and greatest preorder index among
+        all max-score nodes, kept or not (-1 where none).
+
+        A read with eff == 0 has no pair, epp 0 and no LCA whatever it
+        scores, so only the reads with eff > 0 are scored: their key rows are
+        gathered once and the chunk x block loop runs over them.  The
+        (read, node) pairs come off the card by torch.nonzero of each
+        block's masks (one sync a block) and are grouped with numpy.  The
+        masks are taken in the scores' own type (uint8 below 256 seedmer
+        slots): eff - threshold clamped at 0 selects the same nodes, since
+        scores are >= 0."""
+        R = len(self.reads)
+        C, B, dev = self.NODE_CHUNK, self.READ_CHUNK, self.device
+        eff = np.asarray(eff).astype(np.int32)
+        thr = np.maximum(amb_thr, (eff * amb_ratio).astype(np.int32))
+        live = np.flatnonzero(eff > 0)
+        epp = np.zeros(R, dtype=np.int64)
+        lca_lo = np.full(R, -1, dtype=np.int64)
+        lca_hi = np.full(R, -1, dtype=np.int64)
+        if not len(live):
+            return {}, [], epp, (lca_lo, lca_hi)
+        narrow = self.n_slots < 256 and int(eff.max()) < 256
+        cmp_t = torch.uint8 if narrow else torch.int32
+        eff_l, near_l = eff[live], np.maximum(eff[live] - thr[live], 0)
+        live_t = torch.from_numpy(live).to(dev)
+        fwd_l, rev_l = self._fwd_t[live_t], self._rev_t[live_t]
+        eff_t = torch.from_numpy(eff_l).to(dev).to(cmp_t)[:, None]
+        near_t = torch.from_numpy(near_l).to(dev).to(cmp_t)[:, None]
+        keep_t = torch.from_numpy(np.asarray(keep, dtype=bool)).to(dev)
+        L = len(live)
+        far = 1 << 30
+        epp_t = torch.zeros(L, dtype=torch.int64, device=dev)
+        lo_t = torch.full((L,), far, dtype=torch.int64, device=dev)
+        hi_t = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        max_pairs, near_pairs = [], []  # per chunk: [(reads, nodes) a block]
+        syncs = 0  # each nonzero waits for the card to size its result
+        for ci in range(self.n_chunks):
+            lo = self._chunk_lo[ci]
+            n_valid = min(C, self.n_nodes - lo)
+            if n_valid <= 0:
+                continue
+            P = self.presence(ci)
+            keep_c = keep_t[lo:lo + n_valid][None, :]
+            iota = torch.arange(lo, lo + n_valid, device=dev)[None, :]
+            mp, nr = [], []
+            for r0 in range(0, L, B):
+                r1 = min(r0 + B, L)
+                _, sc = score_block(P, fwd_l[r0:r1], rev_l[r0:r1], n_valid)
+                sc = sc[:, :n_valid]  # columns past the tree do not count
+                if sc.dtype != cmp_t:  # S >= 256, or an eff past 255
+                    sc = sc.to(cmp_t)
+                is_max_all = sc == eff_t[r0:r1]
+                is_max = is_max_all & keep_c
+                near = sc >= near_t[r0:r1]
+                epp_t[r0:r1] += is_max.sum(dim=1)
+                lo_t[r0:r1] = torch.minimum(lo_t[r0:r1], torch.where(
+                    is_max_all, iota, far).amin(dim=1))
+                hi_t[r0:r1] = torch.maximum(hi_t[r0:r1], torch.where(
+                    is_max_all, iota, -1).amax(dim=1))
+                for mask, acc in ((is_max, mp), (near, nr)):
+                    rc = torch.nonzero(mask).cpu().numpy()  # row-major
+                    syncs += 1
+                    acc.append((live[rc[:, 0] + r0], rc[:, 1] + lo))
+            max_pairs.append(mp)
+            near_pairs.append(nr)
+        self.nonzero_syncs = syncs
+        self.pairs_copied = sum(len(r) for ch in max_pairs + near_pairs
+                                for r, _ in ch)
+
+        # kept node -> reads: a chunk's pairs are in (read, node) order, so
+        # a stable sort by node keeps each node's reads ascending
+        assigned_by_node: dict = {}
+        for mp in max_pairs:
+            rr = np.concatenate([r for r, _ in mp])
+            nn = np.concatenate([n for _, n in mp])
+            if not len(nn):
+                continue
+            order = np.argsort(nn, kind="stable")
+            starts = np.flatnonzero(np.concatenate(
+                ([True], nn[order][1:] != nn[order][:-1])))
+            bounds = np.append(starts, len(nn))
+            # nodes in the order of their first pair
+            for g in np.argsort(order[starts], kind="stable").tolist():
+                a, b = bounds[g], bounds[g + 1]
+                assigned_by_node[int(nn[order[a]])] = rr[order[a:b]].tolist()
+        rr = np.concatenate([r for nr in near_pairs for r, _ in nr])
+        nn = np.concatenate([n for nr in near_pairs for _, n in nr])
+        order = np.lexsort((nn, rr))
+        rr, nn = rr[order], nn[order].astype(np.int64)
+        cuts = np.flatnonzero(rr[1:] != rr[:-1]) + 1
+        near_iter = [(int(ns_r), ns) for ns_r, ns in zip(
+            rr[np.concatenate(([0], cuts))].tolist() if len(rr) else [],
+            np.split(nn, cuts))]
+        epp[live] = epp_t.cpu().numpy()
+        lca_hi[live] = hi_t.cpu().numpy()
+        lo_h = lo_t.cpu().numpy()
+        lca_lo[live] = np.where(lo_h == far, -1, lo_h)
+        return assigned_by_node, near_iter, epp, (lca_lo, lca_hi)

@@ -1,5 +1,6 @@
 """Single-sample pipeline on one GPU: index -> place -> align ->
-genotype -> consensus (counterpart of panmap_tpu/pipeline.py).
+genotype -> consensus, and its batch mode over a manifest of samples
+(counterpart of panmap_tpu/pipeline.py).
 
 Stage structure and artifact naming mirror the reference CLI
 (src/main.cpp:2408-2507 stage machine, runPlacement/runAlignment/runGenotyping/
@@ -16,13 +17,18 @@ stages that touch the device are the port's:
    --refine, --verify-scores);
  - run_alignment: TorchBatchAligner (deferred windows on the SW kernel)
    for short reads, TorchLongReadAligner (the banded DP rows on the
-   long-read kernel) for long reads.
+   long-read kernel) for long reads;
+ - run_genotyping: the per-column pileup tallies on the device
+   (genotype.caller.tally_columns_device) under --device-pileup on, and
+   under auto on a CUDA device;
+ - run_batch: one TorchPlacer for the run, placement pipelined across the
+   samples on the device, the host stages of each sample in a pre-forked
+   pool of workers that never touch the device.
 
-Genotyping always uses the host pileup tally: the device tally
-(--device-pileup on) is not ported yet.  Not carried, since they served
-only a remote TPU link or a device mesh: the backend warm-up, the watchdog,
-the one-shot remote policy, the cold-dispatch race, the mesh branch, the
-multi-host index wait and batch mode.
+Not carried, since they served only a remote TPU link or a device mesh: the
+backend warm-up, the watchdog, the one-shot remote policy, the cold-dispatch
+race, the mesh branch, the multi-host index wait and batch mode's
+multi-process manifest shard.
 """
 
 from __future__ import annotations
@@ -218,18 +224,11 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
 def check_supported(cfg: PipelineConfig):
     """Raise NotImplementedError for options whose device path this port
     does not have yet (each names its ROADMAP item)."""
-    if cfg.batch_file:
-        raise NotImplementedError("--batch is not ported yet (ROADMAP A: "
-                                  "batch mode)")
     if cfg.mesh > 1:
         raise NotImplementedError("--mesh > 1 is not ported yet (ROADMAP B7)")
     if cfg.profile_dir:
         raise NotImplementedError("--profile writes a jax.profiler trace; "
                                   "not ported")
-    if (cfg.device_pileup == "on"
-            or os.environ.get("PANMAP_TPU_DEVICE_PILEUP") == "1"):
-        raise NotImplementedError("the device pileup tally is not ported yet "
-                                  "(ROADMAP B4); use --device-pileup off")
 
 
 def read_sketch(cfg: PipelineConfig, idx):
@@ -277,15 +276,28 @@ def read_sketch(cfg: PipelineConfig, idx):
     return sk, len(seqs)
 
 
-def place(cfg: PipelineConfig, idx, sk, device):
-    """PlacementScores of the sketch: TorchPlacer.place_exact on ``device``,
-    or the f64 host engine where the JAX package runs it by contract
-    (--host-place, --dump-all-scores, --refine, or place_exact refused);
-    --verify-scores checks the device result against the host engine."""
-    res = None
+def place_async(cfg: PipelineConfig, idx, sk, device, placer=None):
+    """PlacementScores of the sketch, in two halves: the device selection
+    program (TorchPlacer.place_exact_async on ``device``) is enqueued here
+    and a zero-arg finisher is returned, which waits for it and completes
+    the exact f64 rescue; or the finisher runs the f64 host engine where the
+    JAX package runs it by contract (--host-place, --dump-all-scores,
+    --refine, or place_exact refused).  --verify-scores checks the device
+    result against the host engine.  ``placer``: a TorchPlacer of ``idx`` to
+    reuse (batch mode holds one for the run); built here otherwise, which
+    uploads the index."""
+    fin0 = None
     if cfg.device_place and not (cfg.dump_all_scores or cfg.refine):
-        res = TorchPlacer(idx, device).place_exact(sk,
-                                                   force_leaf=cfg.force_leaf)
+        if placer is None:
+            placer = TorchPlacer(idx, device)
+        fin0 = placer.place_exact_async(sk, force_leaf=cfg.force_leaf)
+    return lambda: _place_finish(cfg, idx, sk, fin0)
+
+
+def _place_finish(cfg: PipelineConfig, idx, sk, fin0):
+    res = None
+    if fin0 is not None:
+        res = fin0()
         if res is None:
             cfg.log("[place] device tie-candidates inconclusive; host engine")
     if res is None:
@@ -310,11 +322,20 @@ def place(cfg: PipelineConfig, idx, sk, device):
     return res
 
 
-def run_placement(cfg: PipelineConfig, idx, device):
+def run_placement(cfg: PipelineConfig, idx, device, placer=None,
+                  _async: bool = False):
     """Sketch the reads, place them on the device (exact f64 rescue), write
-    <out>.placement.tsv.  Returns (PlacementScores, best node id, n_reads)."""
+    <out>.placement.tsv.  Returns (PlacementScores, best node id, n_reads);
+    with ``_async`` a zero-arg finisher that returns them: the device
+    selection program is then in flight, and batch mode sketches the next
+    sample under it.  ``placer``: see place_async()."""
     sk, n_reads = read_sketch(cfg, idx)
-    return _finish_placement(cfg, idx, place(cfg, idx, sk, device), n_reads)
+    fin = place_async(cfg, idx, sk, device, placer)
+
+    def finish():
+        return _finish_placement(cfg, idx, fin(), n_reads)
+
+    return finish if _async else finish()
 
 
 def _finish_placement(cfg: PipelineConfig, idx: IndexArrays, res, n_reads: int):
@@ -671,7 +692,10 @@ def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
     The device stages run on ``device``: for short reads TorchBatchAligner
     (deferred windows on the SW kernel), for long reads (mean length >= 500,
     map-ont / map-hifi) TorchLongReadAligner (the banded DP rows on the
-    long-read kernel); --aligner bwa is all host code.  A ``stats`` dict
+    long-read kernel); --aligner bwa is all host code.  With ``device``
+    None every DP runs on the host (batch mode's forked workers: the
+    carried LongReadAligner, TorchBatchAligner without a device), which
+    gives the same records.  A ``stats`` dict
     receives the device stage's counters: the SW stage's (deferred,
     device_scored, survivors) or the long DP's (items, device_dp, host_dp)
     and its stage seconds."""
@@ -701,11 +725,13 @@ def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
         pairs = [(a, None) for a in ad.align_batch(seqs)]
     elif avg_len >= 500:
         # long reads: preset by mean length (mm_align.c:38-41), unpaired
-        from .align.longread import TorchLongReadAligner, pick_preset
+        from .align.longread import (LongReadAligner, TorchLongReadAligner,
+                                     pick_preset)
 
         pre = pick_preset(avg_len)
         cfg.log(f"[align] long-read preset {pre.name} (avg len {avg_len:.0f})")
-        lr = TorchLongReadAligner(ref, pre, device, stats=stats)
+        lr = (LongReadAligner(ref, pre) if device is None
+              else TorchLongReadAligner(ref, pre, device, stats=stats))
         paired = False
         pairs = [(a, None) for a in lr.align_batch(seqs)]
     else:
@@ -814,7 +840,10 @@ def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
 
 
 def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
-                   best_node: str, placed):
+                   best_node: str, placed, device=None):
+    """Call variants from the placed reads and write <out>.vcf.  The
+    per-column pileup tallies run on ``device`` as --device-pileup says
+    (resolve_device_pileup); with ``device`` None they run on the host."""
     if cfg.no_mutation_spectrum:
         phred = None  # main.cpp:2450: gate-only filtering, no prior
     elif cfg.mutation_matrix:
@@ -827,7 +856,8 @@ def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
     # provably cannot survive apply_spectrum skip the per-column PL math)
     from .genotype.caller import resolve_device_pileup
 
-    dev_tally = resolve_device_pileup(cfg.device_pileup)
+    dev_tally = (None if device is None
+                 else resolve_device_pileup(cfg.device_pileup, device))
     if isinstance(placed, ColumnarReads):
         records = pileup_call_columnar(ref, placed, spectrum=phred,
                                        device_tally=dev_tally)
@@ -849,15 +879,238 @@ def run_consensus(cfg: PipelineConfig, ref: str, best_node: str, final_records):
     cfg.log(f"[build] {cfg.output}.consensus.fa")
 
 
+def read_batch_file(path: str):
+    """Batch manifest: one sample per line, `reads1 [reads2] [prefix]`
+    (main.cpp:1025-1090 readBatchFiles).  A single optional second field is
+    reads2 if it looks like FASTQ, else an output prefix; a missing prefix is
+    derived from reads1 with _R1/_1-style suffixes stripped, keeping the
+    directory."""
+    entries = []
+    with open(path) as fh:
+        for lineno, line in enumerate(fh, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            reads1, reads2, prefix = parts[0], "", ""
+            if len(parts) >= 3:
+                reads2, prefix = parts[1], parts[2]
+            elif len(parts) == 2:
+                low = parts[1].lower()
+                if ".fastq" in low or ".fq" in low:
+                    reads2 = parts[1]
+                else:
+                    prefix = parts[1]
+            if not prefix:
+                prefix = os.path.join(os.path.dirname(reads1) or ".",
+                                      default_prefix(reads1))
+            if not os.path.exists(reads1):
+                raise FileNotFoundError(f"batch line {lineno}: {reads1}")
+            if reads2 and not os.path.exists(reads2):
+                raise FileNotFoundError(f"batch line {lineno}: {reads2}")
+            entries.append((reads1, reads2, prefix))
+    return entries
+
+
+_BATCH_CTX: dict = {}
+
+
+def _batch_host_stages(args):
+    """Post-placement stages for one batch sample, run in a forked worker
+    (host-only code: align, genotype, consensus — no device access).
+    tree/idx/cfg come in via fork-inherited globals, not pickles.
+
+    A CUDA context does not survive fork, so a worker passes no device
+    down: every alignment DP runs on the host (run_alignment with device
+    None) and the pileup tally is the host bincounts.  The records are the
+    same either way (the SW stage never drops a window; the long-read host
+    DP and the tally are the device stages' oracles).  Nothing here catches
+    a CUDA error: a worker that reached the device would fail its sample
+    with torch's own message."""
+    import copy
+
+    reads1, reads2, prefix, best_id = args
+    tree = _BATCH_CTX["tree"]
+    idx = _BATCH_CTX["idx"]
+    scfg = copy.copy(_BATCH_CTX["cfg"])
+    scfg.reads1, scfg.reads2, scfg.output = reads1, reads2, prefix
+    scfg.log = lambda *a, **k: None
+    ref, placed = run_alignment(scfg, tree, best_id, None)
+    if scfg.stop != "align":
+        final = run_genotyping(scfg, idx, ref, best_id, placed)
+        if scfg.stop != "genotype":
+            run_consensus(scfg, ref, best_id, final)
+    return prefix
+
+
+def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
+    """Batch placement (main.cpp:1464-1700 runBatchPlacement): the index and
+    tree are loaded once and shared read-only across all samples.  Placement
+    streams through the one device serially, on ONE TorchPlacer (one index
+    upload for the run); the host stages (align, genotype, consensus) fan
+    out over a pre-forked worker pool — the equivalent of the reference's
+    sample-level tbb::parallel_for (main.cpp:1575-1658).
+
+    The pool (at most 8 workers; only for more than one sample and a stop
+    past "place") is forked before this function's first CUDA call, and its
+    workers run host code only (_batch_host_stages): an explicit
+    --device-pileup on does not reach them, and the log says so.  With one
+    sample or one worker the stages run in this process on ``device``, SW
+    kernel and device tally included, as run_pipeline runs them.  ``idx`` /
+    ``tree``: an index and a tree already in memory (ensure_index /
+    load_panman otherwise).  Returns 0, or 1 when any sample failed."""
+    try:
+        samples = read_batch_file(cfg.batch_file)
+    except (OSError, FileNotFoundError) as exc:
+        cfg.log(f"[batch] error: {exc}")
+        return 1
+    if not samples:
+        cfg.log("[batch] no samples in batch file")
+        return 1
+    cfg.log(f"[batch] {len(samples)} samples")
+    native.require_lib()  # a failed build raises here, not a silent slow path
+    if idx is None:
+        idx, tree = ensure_index(cfg, tree)
+    if cfg.stop == "index":
+        return 0
+    need_tree = cfg.stop not in ("index", "place")
+    if need_tree and tree is None:
+        tree = load_panman(cfg.panman)
+
+    # pre-fork the host-stage pool BEFORE any device work so workers carry
+    # no live device-client threads
+    pool = None
+    if need_tree and len(samples) > 1:
+        import multiprocessing as mp
+
+        workers = max(1, min(cfg.threads or (os.cpu_count() or 4),
+                             len(samples), 8))
+        if workers > 1:
+            _BATCH_CTX.update(tree=tree, idx=idx, cfg=cfg)
+            try:
+                pool = mp.get_context("fork").Pool(processes=workers)
+            except (OSError, ValueError):
+                pool = None
+            if pool is not None:
+                cfg.log(f"[batch] {workers} forked workers run align, "
+                        f"genotype and consensus on the host only (every "
+                        f"DP and the pileup tally: no device in a worker); "
+                        f"placement stays on the device")
+                env = os.environ.get("PANMAP_TPU_DEVICE_PILEUP", "")
+                if env == "1" or (cfg.device_pileup == "on" and env != "0"):
+                    cfg.log("[batch] --device-pileup on does not reach the "
+                            "forked workers: their tally is the host "
+                            "bincounts (the same counts); it holds where the "
+                            "stages run in this process (one sample, or "
+                            "--threads 1)")
+
+    try:
+        device = as_device(device)
+        placer = None
+        if cfg.device_place and not (cfg.dump_all_scores or cfg.refine):
+            placer = TorchPlacer(idx, device)  # the run's one index upload
+        return _run_batch_samples(cfg, samples, idx, tree, device, placer,
+                                  pool, need_tree)
+    finally:
+        if pool is not None:
+            pool.close()
+            pool.join()
+        _BATCH_CTX.clear()
+
+
+def _run_batch_samples(cfg, samples, idx, tree, device, placer, pool,
+                       need_tree):
+    """run_batch's loop over the samples: dispatch, resolve, collect."""
+    import copy
+
+    n_ok = n_fail = 0
+    t_all = time.time()
+    pending = []  # (i, prefix, async_result, t0)
+    # placement is software-pipelined across samples: sample i's device
+    # selection program flies while sample i+1's host sketch runs (the
+    # reference streams samples through shared state serially,
+    # main.cpp:1575-1658; here the chip and the host cores overlap instead)
+    inflight = None  # (i, sample, scfg, placement_finisher, t0)
+
+    def _dispatch(i, sample):
+        reads1, reads2, prefix = sample
+        scfg = copy.copy(cfg)
+        scfg.reads1, scfg.reads2, scfg.output = reads1, reads2, prefix
+        scfg.log = lambda *a, **k: None
+        t0 = time.time()
+        try:
+            # makedirs inside the capture: a bad output prefix must fail
+            # THIS sample at resolve time, not abort the whole batch
+            out_dir = os.path.dirname(prefix)
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+            fin = run_placement(scfg, idx, device, placer=placer, _async=True)
+        except Exception as exc:
+            err = exc
+
+            def fin():
+                raise err
+
+        return i, sample, scfg, fin, t0
+
+    def _resolve(entry):
+        nonlocal n_ok, n_fail
+        i, (reads1, reads2, prefix), scfg, fin, t0 = entry
+        try:
+            res, best_id, _ = fin()
+            if not best_id:
+                cfg.log(f"[{i}/{len(samples)}] {prefix} -> NO PLACEMENT "
+                        f"({time.time()-t0:.1f}s)")
+                n_fail += 1
+                return
+            if need_tree:
+                if pool is not None:
+                    pending.append((i, prefix, best_id, pool.apply_async(
+                        _batch_host_stages,
+                        ((reads1, reads2, prefix, best_id),)), t0))
+                    return
+                ref, placed = run_alignment(scfg, tree, best_id, device)
+                if cfg.stop != "align":
+                    final = run_genotyping(scfg, idx, ref, best_id, placed,
+                                           device)
+                    if cfg.stop != "genotype":
+                        run_consensus(scfg, ref, best_id, final)
+            cfg.log(f"[{i}/{len(samples)}] {prefix} -> {best_id} "
+                    f"({time.time()-t0:.1f}s)")
+            n_ok += 1
+        except Exception as exc:  # keep going: one bad sample must not kill the batch
+            cfg.log(f"[{i}/{len(samples)}] {prefix} -> FAILED ({exc})")
+            n_fail += 1
+
+    for i, sample in enumerate(samples, 1):
+        entry = _dispatch(i, sample)
+        if inflight is not None:
+            _resolve(inflight)
+        inflight = entry
+    if inflight is not None:
+        _resolve(inflight)
+    for i, prefix, best_id, ar, t0 in pending:
+        try:
+            ar.get()
+            cfg.log(f"[{i}/{len(samples)}] {prefix} -> {best_id} "
+                    f"({time.time()-t0:.1f}s)")
+            n_ok += 1
+        except Exception as exc:
+            cfg.log(f"[{i}/{len(samples)}] {prefix} -> FAILED ({exc})")
+            n_fail += 1
+    cfg.log(f"[batch] {n_ok} succeeded, {n_fail} failed in {time.time()-t_all:.1f}s")
+    return 0 if n_fail == 0 else 1
+
+
 def run_pipeline(cfg: PipelineConfig, device=None):
-    """Run the single-sample pipeline; ``device`` defaults to the first CUDA
-    device (a CPU device is for the parity tests)."""
+    """Run the single-sample pipeline, or batch mode with cfg.batch_file;
+    ``device`` defaults to the first CUDA device (a CPU device is for the
+    parity tests)."""
     check_supported(cfg)
+    if cfg.batch_file:
+        return run_batch(cfg, device)
     device = as_device(device)
     native.require_lib()  # a failed build raises here, not a silent slow path
-    if cfg.device_pileup == "auto":
-        cfg.log("[call] pileup tally on the host (the device tally is not "
-                "ported yet)")
     tree = None
     idx, tree = ensure_index(cfg, tree)
     if cfg.export_ref_idx:
@@ -921,7 +1174,7 @@ def run_pipeline(cfg: PipelineConfig, device=None):
         bam_join()
         return
     try:
-        final = run_genotyping(cfg, idx, ref, best_id, placed)
+        final = run_genotyping(cfg, idx, ref, best_id, placed, device)
     finally:
         bam_join()  # never leave the writer thread orphaned on an error
     if cfg.stop == "genotype":

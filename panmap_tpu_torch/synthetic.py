@@ -1,8 +1,10 @@
 """Synthetic workloads made from a seed: a placement index, a genome, and
 reads simulated from a mutated copy of it, paired 150 bp reads
 (make_workload) or single-end Nanopore-like long reads
-(make_long_workload); and a metagenomic mixture of five haplotypes over a
-meta index (make_meta_workload, see its docstring).
+(make_long_workload); a metagenomic mixture of five haplotypes over a
+meta index (make_meta_workload, see its docstring); and an ancient-DNA-like
+sample over a meta index of many taxa for read assignment
+(make_assign_workload).
 
 The repo bundles no PanMAN file and has no PanMAN writer, so chip_smoke.py
 and the CPU tests drive the port's stage functions with this workload
@@ -468,3 +470,236 @@ def make_meta_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
                         haplotypes=tuple(f"hap_{j}" for j in range(len(props))),
                         proportions=tuple(props), n_reads=2 * n_pairs,
                         n_rows=int(offsets[-1]))
+
+
+@dataclass
+class AssignWorkload:
+    midx: MetaIndexArrays
+    reads1: str  # FASTQ path (single-end)
+    taxonomy: str  # metadata TSV: sample, species, genus
+    taxa: tuple  # node ids of the leaves the target reads were drawn from
+    n_reads: int
+    n_target: int  # reads drawn from ``taxa``
+    n_rows: int  # delta rows of the meta index
+
+
+def _adna_reads(rng, sources: list, n_target: int, n_background: int,
+                n_low: int, len_lo: int, len_hi: int):
+    """(codes uint8 [n, len_hi], lengths, quals uint8 [n, len_hi]), shuffled:
+    ``n_target`` fragments of ``len_lo``-``len_hi`` bp drawn uniformly from
+    the code arrays in ``sources``, half reverse-complemented, then damaged
+    as sequenced (C->T in the first four bases and G->A in the last four,
+    each with probability 0.3, as tests/test_e2e.py draws ancient DNA);
+    ``n_background`` random fragments; ``n_low`` low-complexity ones
+    (repeats of a unit of 1-3 bases).  Phred 12 on the four bases of either
+    end, 40 elsewhere."""
+    n = n_target + n_background + n_low
+    lens = rng.integers(len_lo, len_hi + 1, n)
+    col = np.arange(len_hi)
+    codes = rng.integers(0, 4, (n, len_hi)).astype(np.uint8)
+    # target fragments
+    slen = np.array([len(c) for c in sources])
+    offs = np.concatenate(([0], np.cumsum(slen)[:-1]))
+    allc = np.concatenate(sources).astype(np.uint8)
+    src = rng.integers(0, len(sources), n_target)
+    tl = lens[:n_target]
+    start = (rng.random(n_target) * (slen[src] - tl + 1)).astype(np.int64)
+    at = (offs[src] + start)[:, None] + np.minimum(col, tl[:, None] - 1)
+    frag = allc[at]
+    flip = rng.random(n_target) < 0.5
+    back = np.maximum(tl[:, None] - 1 - col, 0)  # reversed column per read
+    frag = np.where(flip[:, None], 3 - np.take_along_axis(frag, back, 1),
+                    frag)
+    hit = rng.random((n_target, len_hi)) < 0.3
+    from_end = tl[:, None] - 1 - col
+    frag = np.where(hit & (col < 4) & (frag == 1), 3, frag)  # C -> T
+    frag = np.where(hit & (from_end >= 0) & (from_end < 4) & (frag == 2), 0,
+                    frag)  # G -> A
+    codes[:n_target] = frag
+    # low-complexity fragments: a unit of 1-3 bases repeated
+    unit = rng.integers(0, 4, (n_low, 3)).astype(np.uint8)
+    period = rng.integers(1, 4, n_low)
+    lo0 = n_target + n_background
+    codes[lo0:] = np.take_along_axis(unit, col[None, :] % period[:, None], 1)
+    quals = np.where((col < 4) | ((lens[:, None] - 1 - col) < 4), 12 + 33,
+                     40 + 33).astype(np.uint8)
+    order = rng.permutation(n)
+    return codes[order], lens[order], quals[order]
+
+
+def make_assign_workload(out_dir: str, seed: int = 0, n_clades: int = 400,
+                         clade_nodes: int = 25, genome_len: int = 16500,
+                         n_reads: int = 250_000, n_taxa: int = 10,
+                         target_share: float = 0.035,
+                         sister_genera: int = 4, low_share: float = 0.01,
+                         len_lo: int = 35, len_hi: int = 120,
+                         k: int = 15, s: int = 8, l: int = 1
+                         ) -> AssignWorkload:
+    """A filter-and-assign sample of the shape of the reference's demo 3
+    (a mitochondrial PanMAN of many vertebrate taxa, ancient-DNA reads,
+    ``-k 15 -s 8 -l 1``, a taxonomy TSV), written into ``out_dir``.
+
+    The meta index lies on a tree of a root, genus nodes without seeds, and
+    under each genus 1-3 clades ("species") of ``clade_nodes`` nodes: a
+    clade's first node adds the seedmers of the clade's own random
+    ``genome_len`` bp genome (mtDNA size), every other node those of its
+    parent's sequence with 1-4 substitutions (each node is sketched as
+    reads are; a node's rows are its seedmer set against its parent's).
+    The first ``sister_genera`` genera hold two sister species 1% apart, so
+    reads from their conserved stretches tie across species: their LCA is
+    the genus node, and --maximum-taxon-number 1 at the species rank drops
+    them.  Clade c's seeds lie at c * genome_len + their own coordinates.
+    The taxonomy TSV maps every leaf to a ``species`` and a ``genus``.
+
+    Reads (single-end FASTQ): ``len_lo``-``len_hi`` bp; a ``target_share``
+    drawn from one leaf each of ``n_taxa`` species (both species of the
+    first sister genus among them) with ancient-DNA damage (_adna_reads); a
+    ``low_share`` of low-complexity repeats for --dust; the rest random
+    background that hits no seed."""
+    rng = np.random.default_rng(seed)
+    p = IndexParams(k=k, s=s, l=l)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    # the tree in preorder: root, then genus by genus, clade by clade
+    sizes = [2] * sister_genera
+    while sum(sizes) < n_clades:
+        sizes.append(min(int(rng.integers(1, 4)), n_clades - sum(sizes)))
+    parent, node_ids, genus_of, clade_lo = [0], ["root"], [], []
+    for g, size in enumerate(sizes):
+        gnode = len(parent)
+        parent.append(0)
+        node_ids.append(f"genus_{g}")
+        for _ in range(size):
+            c = len(clade_lo)
+            lo = len(parent)
+            local = random_preorder_parents(rng, clade_nodes).astype(np.int64)
+            parent += [gnode] + (local[1:] + lo).tolist()
+            node_ids += [f"sp{c}_n{j}" for j in range(clade_nodes)]
+            genus_of.append(g)
+            clade_lo.append(lo)
+    n_nodes = len(parent)
+    parent = np.array(parent, np.uint32)
+
+    # node sequences: substitutions down each clade
+    seq_codes = np.empty((n_clades * clade_nodes, genome_len), np.uint8)
+    for c, lo in enumerate(clade_lo):
+        rows = seq_codes[c * clade_nodes:(c + 1) * clade_nodes]
+        if c < 2 * sister_genera and c % 2 == 1:  # 1% off its sister
+            rows[0] = seq_codes[(c - 1) * clade_nodes]
+            at = rng.choice(genome_len, genome_len // 100, replace=False)
+            rows[0, at] = (rows[0, at] + rng.integers(1, 4, len(at))) % 4
+        else:
+            rows[0] = rng.integers(0, 4, genome_len)
+        for j in range(1, clade_nodes):
+            rows[j] = rows[int(parent[lo + j]) - lo]
+            at = rng.choice(genome_len, int(rng.integers(1, 5)),
+                            replace=False)
+            rows[j, at] = (rows[j, at] + rng.integers(1, 4, len(at))) % 4
+    text = acgt[seq_codes].tobytes().decode()
+    seqs = [text[i * genome_len:(i + 1) * genome_len]
+            for i in range(len(seq_codes))]
+    del text
+    sk, dup_index, _ = sketch_meta_reads_full(seqs, p.k, p.s, p.t, p.l,
+                                              p.open)
+    del seqs
+    set_of = np.full(len(seq_codes), -1, np.int64)
+    for u, members in enumerate(dup_index):
+        set_of[np.asarray(members, np.int64)] = u
+    if (set_of < 0).any():
+        raise ValueError("a node's sequence has no seedmer: genome_len is "
+                         "too small for k, s and l")
+
+    # per clade: intern (pos, hash, rev) into seeds, rows against the parent
+    seed_parts, rows_dels, rows_adds = [], {}, {}
+    n_seeds = 0
+    for c, lo in enumerate(clade_lo):
+        recs = [sk[set_of[c * clade_nodes + j]] for j in range(clade_nodes)]
+        pos = np.concatenate([r.qbeg for r in recs]) + c * genome_len
+        end = np.concatenate([r.qend for r in recs]) + c * genome_len
+        hsh = np.concatenate([r.hashes for r in recs]).astype(np.uint64)
+        rev = np.concatenate([np.asarray(r.revs, bool) for r in recs])
+        order = np.lexsort((rev, hsh, pos))
+        sp, sh, sr = pos[order], hsh[order], rev[order]
+        first = np.concatenate(([True], (sp[1:] != sp[:-1])
+                                | (sh[1:] != sh[:-1]) | (sr[1:] != sr[:-1])))
+        rid = np.empty(len(pos), np.int64)
+        rid[order] = np.cumsum(first) - 1 + n_seeds
+        seed_parts.append((sh[first], sr[first], sp[first],
+                           end[order][first]))
+        n_seeds += int(first.sum())
+        bounds = np.cumsum([0] + [len(r.hashes) for r in recs])
+        ids = [np.unique(rid[bounds[j]:bounds[j + 1]])
+               for j in range(clade_nodes)]
+        for j in range(clade_nodes):
+            up = (ids[int(parent[lo + j]) - lo] if j
+                  else np.empty(0, np.int64))
+            rows_dels[lo + j] = np.setdiff1d(up, ids[j])
+            rows_adds[lo + j] = np.setdiff1d(ids[j], up)
+
+    none = np.empty(0, np.int64)
+    node_rows = [(rows_dels.get(i, none), rows_adds.get(i, none))
+                 for i in range(n_nodes)]
+    delta_seed = np.concatenate([np.concatenate(x) for x in node_rows])
+    delta_is_del = np.concatenate([np.repeat([True, False], [len(d), len(a)])
+                                   for d, a in node_rows])
+    offsets = np.zeros(n_nodes + 1, np.int64)
+    offsets[1:] = np.cumsum([len(d) + len(a) for d, a in node_rows])
+    n_scalar = n_clades * genome_len
+    seed_hash, seed_rev, seed_pos, seed_end = (
+        np.concatenate(x) for x in zip(*seed_parts))
+    midx = MetaIndexArrays(
+        params=p, node_ids=node_ids, parent_index=parent,
+        seed_hash=seed_hash, seed_rev=seed_rev,
+        seed_pos=seed_pos.astype(np.int64),
+        delta_seed=delta_seed.astype(np.int32), delta_is_del=delta_is_del,
+        node_offsets=offsets, seed_end=seed_end.astype(np.int64),
+        gev_offsets=np.zeros(n_nodes + 1, np.int64),
+        gev_pos=np.empty(0, np.int64), gev_nongap=np.empty(0, bool),
+        bev_offsets=np.zeros(n_nodes + 1, np.int64),
+        bev_block=np.empty(0, np.int32), bev_code=np.empty(0, np.int8),
+        block_lo=np.zeros(1, np.int64),
+        block_hi=np.full(1, n_scalar - 1, np.int64),
+        nongap0=np.packbits(np.ones(n_scalar, np.uint8), bitorder="little"),
+        n_scalar=n_scalar)
+
+    # the taxonomy: every leaf names its species and its genus
+    has_child = np.zeros(n_nodes, bool)
+    has_child[parent[1:]] = True
+    os.makedirs(out_dir, exist_ok=True)
+    taxonomy = os.path.join(out_dir, "assign.meta.tsv")
+    with open(taxonomy, "w") as fh:
+        fh.write("sample\tspecies\tgenus\n")
+        for c, lo in enumerate(clade_lo):
+            for i in range(lo, lo + clade_nodes):
+                if not has_child[i]:
+                    fh.write(f"{node_ids[i]}\tspecies_{c}\t"
+                             f"genus_{genus_of[c]}\n")
+
+    # target taxa: both species of the first sister genus, then others
+    clades = [0, 1] + (rng.choice(np.arange(2, n_clades), n_taxa - 2,
+                                  replace=False).tolist()
+                       if n_taxa > 2 else [])
+    taxa_nodes = []
+    for c in clades[:n_taxa]:
+        lo = clade_lo[c]
+        leaves = np.flatnonzero(~has_child[lo:lo + clade_nodes]) + lo
+        taxa_nodes.append(int(rng.choice(leaves)))
+    sources = [seq_codes[(n - clade_lo[c]) + c * clade_nodes]
+               for n, c in zip(taxa_nodes, clades)]
+    n_target = int(round(n_reads * target_share))
+    n_low = int(round(n_reads * low_share))
+    codes, lens, quals = _adna_reads(rng, sources, n_target,
+                                     n_reads - n_target - n_low, n_low,
+                                     len_lo, len_hi)
+    st = acgt[codes].tobytes().decode()
+    qt = quals.tobytes().decode()
+    reads1 = os.path.join(out_dir, "assign_reads.fastq")
+    with open(reads1, "w") as fh:
+        fh.write("".join(
+            f"@r{i}\n{st[i * len_hi:i * len_hi + n]}\n+\n"
+            f"{qt[i * len_hi:i * len_hi + n]}\n"
+            for i, n in enumerate(lens.tolist())))
+    return AssignWorkload(midx=midx, reads1=reads1, taxonomy=taxonomy,
+                          taxa=tuple(node_ids[n] for n in taxa_nodes),
+                          n_reads=n_reads, n_target=n_target,
+                          n_rows=int(offsets[-1]))

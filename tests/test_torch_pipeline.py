@@ -103,12 +103,29 @@ def test_slice_outputs_byte_equal_to_jax_package(tmp_path, monkeypatch, seed):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--meta", "--filter-and-assign"], ["--batch", "manifest.txt"],
-    ["--mesh", "2"], ["--device-pileup", "on"], ["--dist-nprocs", "2"],
-    ["--meta", "--batch", "manifest.txt"]])
+    ["--mesh", "2"], ["--dist-nprocs", "2"], ["--meta", "--mesh", "2"],
+    ["--profile", "trace_dir"]])
 def test_cli_refuses_unported_options(tmp_path, argv):
     with pytest.raises(NotImplementedError):
         torch_main([str(tmp_path / "x.panman"), "r1.fq", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--meta", "--filter-and-assign"], ["--batch", "manifest.txt"],
+    ["--device-pileup", "on"], ["--meta", "--batch", "manifest.txt"]])
+def test_cli_takes_the_ported_modes(tmp_path, monkeypatch, argv):
+    """The four modes ported last get past the refusals: with no card and
+    an empty PanMAN they fail for the card or the file (or, for a manifest
+    that is not there, return 1), not with NotImplementedError."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    panman = tmp_path / "x.panman"
+    panman.write_bytes(b"")
+    if "--batch" in argv:
+        assert torch_main([str(panman), *argv, "-q"]) == 1
+    else:
+        with pytest.raises((RuntimeError, EOFError)) as exc:
+            torch_main([str(panman), "r1.fq", *argv])
+        assert not isinstance(exc.value, NotImplementedError)
 
 
 def test_cli_needs_a_cuda_device(tmp_path, monkeypatch):
@@ -240,3 +257,107 @@ def test_host_options_run_in_the_port(tmp_path, monkeypatch, option):
         for name in ("seed_hashes", "parent_counts", "child_counts",
                      "node_offsets", "parent_index"):
             assert (getattr(got, name) == getattr(jidx, name)).all(), name
+
+
+# ---- the pileup tally on the device ---------------------------------------
+
+def _bincounts(col_id, g_q, g_s, g_b, ncol):
+    """The host tallies of _pileup_finish (the oracle)."""
+    import numpy as np
+
+    v = g_b < 4
+    f, r = v & (g_s == 0), v & (g_s == 1)
+    return (np.bincount(col_id * 5 + np.minimum(g_b, 4),
+                        minlength=ncol * 5).reshape(ncol, 5),
+            np.bincount(col_id[v] * 4 + g_b[v],
+                        weights=g_q[v].astype(np.float64),
+                        minlength=ncol * 4).reshape(ncol, 4),
+            np.bincount(col_id[f] * 4 + g_b[f],
+                        minlength=ncol * 4).reshape(ncol, 4),
+            np.bincount(col_id[r] * 4 + g_b[r],
+                        minlength=ncol * 4).reshape(ncol, 4))
+
+
+@pytest.mark.parametrize("n, ncol", [(1, 1), (37, 5), (5000, 300),
+                                     (70000, 1100)])
+def test_tally_columns_device_equals_bincounts_and_jax_package(n, ncol):
+    """tally_columns_device on CPU tensors against the numpy bincounts and
+    the JAX package's jitted tally, on random grouped entries (bases 0-4,
+    qualities 4-63, both strands; some columns empty)."""
+    import numpy as np
+
+    from panmap_tpu.genotype.caller import tally_columns_device as jax_tally
+    from panmap_tpu_torch.genotype.caller import tally_columns_device
+
+    rng = np.random.default_rng(n)
+    col_id = np.sort(rng.integers(0, ncol, n)).astype(np.int64)
+    g_q = rng.integers(4, 64, n).astype(np.int64)
+    g_s = rng.integers(0, 2, n).astype(np.int8)
+    g_b = rng.integers(0, 5, n).astype(np.int8)
+    got = tally_columns_device(col_id, g_q, g_s, g_b, ncol,
+                               torch.device("cpu"))
+    want = _bincounts(col_id, g_q, g_s, g_b, ncol)
+    jax_got = jax_tally(col_id, g_q, g_s, g_b, ncol)
+    for a, b, c in zip(got, want, jax_got):
+        assert a.dtype == b.dtype == c.dtype and a.shape == b.shape
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+
+
+@pytest.mark.parametrize("mode, env, want", [
+    ("on", "", ("cpu", "cuda")), ("off", "", (None, None)),
+    ("auto", "", (None, "cuda")), ("off", "1", ("cpu", "cuda")),
+    ("on", "0", (None, None))])
+def test_resolve_device_pileup(monkeypatch, mode, env, want):
+    """on / off are explicit, auto tallies on a CUDA device only, the
+    environment variable overrides all three (the JAX package's rule with
+    "a locally attached accelerator" read as "a CUDA device")."""
+    from panmap_tpu_torch.genotype.caller import resolve_device_pileup
+
+    monkeypatch.setenv("PANMAP_TPU_DEVICE_PILEUP", env)
+    for device, expected in zip((torch.device("cpu"),
+                                 torch.device("cuda", 0)), want):
+        got = resolve_device_pileup(mode, device)
+        assert (got.type if got is not None else None) == expected
+
+
+def test_device_pileup_on_byte_equal_to_jax_package(tmp_path, monkeypatch):
+    """--device-pileup on: both packages tally on their device (here each
+    one's CPU backend); the five outputs stay byte-equal, and equal to the
+    port's run with the host tally."""
+    from panmap_tpu.genotype import caller as hcaller
+    from panmap_tpu_torch.genotype import caller as tcaller
+
+    w = _small(tmp_path, 0)
+    calls = {"jax": 0, "torch": 0}
+    for name, mod in (("jax", hcaller), ("torch", tcaller)):
+        def counting(*a, _real=mod.tally_columns_device, _name=name):
+            calls[_name] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(mod, "tally_columns_device", counting)
+    lines = []
+    cfg = _cfg(hp, str(tmp_path / "jax" / "sample"), w, lines)
+    cfg.device_pileup = "on"
+    jidx = jax_index(w.idx)
+    os.makedirs(os.path.dirname(cfg.output))
+    res, best, _ = hp.run_placement(cfg, jidx)
+    ref, placed = hp.run_alignment(cfg, w.tree, best)
+    final = hp.run_genotyping(cfg, jidx, ref, best, placed)
+    hp.run_consensus(cfg, ref, best, final)
+
+    cpu = torch.device("cpu")
+    outs = {}
+    for mode in ("on", "off"):
+        tcfg = _cfg(tp, str(tmp_path / f"torch_{mode}" / "sample"), w, lines)
+        tcfg.device_pileup = mode
+        os.makedirs(os.path.dirname(tcfg.output))
+        _, tbest, _ = tp.run_placement(tcfg, w.idx, cpu)
+        tref, tplaced = tp.run_alignment(tcfg, w.tree, tbest, cpu)
+        tfinal = tp.run_genotyping(tcfg, w.idx, tref, tbest, tplaced, cpu)
+        tp.run_consensus(tcfg, tref, tbest, tfinal)
+        outs[mode] = tcfg.output
+    assert calls == {"jax": 1, "torch": 1} and len(final) > 0
+    for ext in OUTPUTS:
+        for other in (cfg.output, outs["off"]):
+            assert filecmp.cmp(f"{outs['on']}.{ext}", f"{other}.{ext}",
+                               shallow=False), ext

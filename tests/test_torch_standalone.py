@@ -2,7 +2,8 @@
 standard library, never jax and nothing of panmap_tpu.
 
  (i)   A subprocess imports every module of the port, runs its CLI on a
-       small synthetic single-sample workload and a small --meta workload on
+       small synthetic single-sample workload, a two-line --batch manifest,
+       a small --meta workload and a --meta --filter-and-assign sample on
        the CPU device, drives the long-read path and the CIGAR-overflow
        oracle, and ends with no `jax*` / `panmap_tpu*` key in sys.modules
        (this process has both loaded, so only a subprocess can show it).
@@ -98,7 +99,8 @@ from panmap_tpu_torch.__main__ import main
 from panmap_tpu_torch.io import fastq
 from panmap_tpu_torch.io.index_io import save_index
 from panmap_tpu_torch.meta.index import save_meta_index
-from panmap_tpu_torch.synthetic import (make_long_workload,
+from panmap_tpu_torch.synthetic import (make_assign_workload,
+                                        make_long_workload,
                                         make_meta_workload, make_workload)
 from panmap_tpu_torch.utils import device
 
@@ -118,6 +120,14 @@ save_index(idx_path, w.idx)
 tp.load_panman = lambda path: w.tree
 rc = main([panman, w.reads1, w.reads2, "-i", idx_path,
            "-o", os.path.join(out, "sample"), "-q"])
+assert rc == 0, rc
+
+# the CLI in batch mode: a manifest of two samples, through the forked pool
+manifest = os.path.join(out, "manifest.txt")
+with open(manifest, "w") as fh:
+    for name in ("batch_a", "batch_b"):
+        fh.write(f"{w.reads1} {w.reads2} {os.path.join(out, name)}\n")
+rc = main([panman, "--batch", manifest, "-i", idx_path, "-t", "2", "-q"])
 assert rc == 0, rc
 
 # CIGARs past a 2-op native capacity: the numpy oracle redoes those reads
@@ -161,6 +171,21 @@ md.run_meta(md.MetaConfig(panman=panman, reads1=mw.reads1, reads2=mw.reads2,
                           output=os.path.join(out, "meta2"),
                           log=lambda *a, **k: None),
             midx=mw.midx, device=cpu, stats=mstats)
+
+# the CLI with --meta --filter-and-assign, demo 3's options, on the batched
+# scorer's route (>= 2,000 unique read sets)
+aw = make_assign_workload(os.path.join(out, "assign_reads"), seed=2,
+                          n_clades=6, clade_nodes=10, genome_len=2000,
+                          n_reads=3000, n_taxa=4, sister_genera=1,
+                          target_share=0.5)
+aidx_path = os.path.join(out, "a.ptmidx.npz")
+save_meta_index(aidx_path, aw.midx)
+rc = main([panman, aw.reads1, "--meta", "--filter-and-assign", "-k", "15",
+           "-s", "8", "-l", "1", "--discard", "0.6", "--dust", "5",
+           "--taxonomic-metadata", aw.taxonomy, "--taxonomic-rank",
+           "species", "--breadth-ratio", "-i", aidx_path,
+           "-o", os.path.join(out, "assign"), "-q"])
+assert rc == 0, rc
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "panmap_tpu")
              or k.startswith(("jax.", "jaxlib.", "panmap_tpu.")))
@@ -192,6 +217,12 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         assert f"sample.{ext}" in got["long_outputs"], ext
     assert got["meta_route"] == "device"
     assert "meta.mgsr.abundance.out" in got["outputs"]
+    for name in ("batch_a", "batch_b"):
+        for ext in OUTPUTS:
+            assert f"{name}.{ext}" in got["outputs"], (name, ext)
+    for ext in ("mgsr.assignedReads.fastq", "mgsr.assignedReads.out",
+                "mgsr.assignedReadsLCANode.out", "mgsr.breadths.out"):
+        assert f"assign.{ext}" in got["outputs"], ext
 
 
 # ---- (ii) no import of jax or panmap_tpu anywhere in the port -------------
@@ -264,11 +295,23 @@ DIFFERS = {
             "device route is TorchLongReadAligner.align_batch",
     },
     "genotype/caller.py": {
-        "resolve_device_pileup": "answers off: the jax tally "
-                                 "(tally_columns_device) is not carried",
-        "_pileup_finish": "raises where the JAX package calls "
-                          "tally_columns_device",
+        "resolve_device_pileup": "takes the device and returns it (or None "
+                                 "for the host): auto means a CUDA device, "
+                                 "not a locally attached jax accelerator",
+        "tally_columns_device": "torch index_add_ on the given device, "
+                                "int32 sums, no pow2 buckets and no program "
+                                "cache",
+        "_pileup_finish": "device_tally is the device (None: host), passed "
+                          "on to tally_columns_device",
+        "pileup_call": "device_tally is a device or None, not a bool",
+        "pileup_call_columnar": "device_tally is a device or None, not a "
+                                "bool",
     },
+    "meta/assign.py": {
+        name: "takes the device: the fast route's batched scorer is "
+              "TorchMetaScorer on it"
+        for name in ("run_filter_and_assign", "_filter_assign_batches",
+                     "_assign_one_batch")},
     "meta/engine.py": {
         "run_squarem": "the numpy f64 EM only: the jax branch and the "
                        "device dispatch are meta/em.py's",
@@ -284,11 +327,19 @@ DIFFERS = {
                          "TorchLongReadAligner run the device stages; a "
                          "missing native library raises",
         "run_pipeline": "the port's stage runner (no remote-link policy, "
-                        "no mesh, no batch mode)",
+                        "no mesh)",
+        "run_genotyping": "takes the device and passes it to the tally",
+        "_batch_host_stages": "passes no device down (host DP, host tally) "
+                              "instead of setting PANMAP_PALLAS=0",
+        "run_batch": "one TorchPlacer for the run, the device and an "
+                     "in-memory index / tree as arguments, no multi-process "
+                     "manifest shard, no backend warm-up; its loop is "
+                     "_run_batch_samples",
     },
     "__main__.py": {
         "main": "the port's entry: refuses unported options, builds "
-                "PipelineConfig / MetaConfig, runs on the CUDA device",
+                "PipelineConfig / MetaConfig (the --meta --batch loop "
+                "included), runs on the CUDA device",
     },
 }
 
@@ -298,10 +349,10 @@ CARRIED = {
     "__init__.py": 1,
     "__main__.py": 1, "align/adna.py": 5, "align/batch.py": 10,
     "align/bwt.py": 13, "align/core.py": 15, "align/longread.py": 8,
-    "genotype/baq.py": 9, "genotype/caller.py": 27, "genotype/indel.py": 10,
+    "genotype/baq.py": 9, "genotype/caller.py": 25, "genotype/indel.py": 10,
     "index/builder.py": 28, "io/bam.py": 15, "io/capnp.py": 33,
     "io/fastq.py": 11, "io/index_io.py": 3, "io/panman.py": 17,
-    "io/refidx.py": 14, "meta/driver.py": 2, "meta/engine.py": 39,
+    "io/refidx.py": 14, "meta/assign.py": 7, "meta/driver.py": 2, "meta/engine.py": 39,
     "meta/events.py": 4, "meta/index.py": 7, "meta/rdg.py": 1,
     "native/__init__.py": 27, "pipeline.py": 10, "place/engine.py": 12,
     "place/metrics.py": 6, "place/refine.py": 4, "simulate.py": 7,

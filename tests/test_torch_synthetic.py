@@ -3,8 +3,8 @@ port with (panmap_tpu_torch.synthetic), made from a seed.
 
  - make_workload's output for a seed is pinned: factoring its index code
    out for make_long_workload changed no byte of it;
- - make_long_workload and make_meta_workload have the shapes their
-   docstrings state.
+ - make_long_workload, make_meta_workload and make_assign_workload have
+   the shapes their docstrings state.
 """
 
 import hashlib
@@ -13,6 +13,7 @@ import numpy as np
 
 from panmap_tpu.meta.index import load_meta_index, save_meta_index
 from panmap_tpu_torch.synthetic import (
+    make_assign_workload,
     make_long_workload,
     make_meta_workload,
     make_workload,
@@ -122,3 +123,92 @@ def test_meta_workload_shape(tmp_path):
               "delta_seed", "delta_is_del", "node_offsets", "nongap0"):
         assert np.array_equal(getattr(back, f), getattr(m, f)), f
     assert back.node_ids == m.node_ids
+
+
+def test_assign_workload_shape(tmp_path):
+    """A root, genus nodes without rows, species of ``clade_nodes`` nodes
+    whose rows are consistent along every path (a deletion removes a present
+    seed, an addition an absent one); sister species share most seedmer
+    hashes; the taxonomy names every leaf; reads of 35-120 bp, the target
+    share drawn from the named taxa, some of them damaged at the ends."""
+    from panmap_tpu.meta.assign import load_taxonomy
+    from panmap_tpu_torch.meta.engine import dust_score
+
+    w = make_assign_workload(str(tmp_path), seed=5, n_clades=7,
+                             clade_nodes=8, genome_len=1500, n_reads=2000,
+                             n_taxa=3, sister_genera=2, target_share=0.4,
+                             low_share=0.05)
+    m = w.midx
+    n = len(m.node_ids)
+    parent = m.parent_index.astype(np.int64)
+    genera = [i for i, nm in enumerate(m.node_ids) if nm.startswith("genus_")]
+    assert m.node_ids[0] == "root" and n == 1 + len(genera) + 7 * 8
+    assert (m.params.k, m.params.s, m.params.l) == (15, 8, 1)
+    assert all(parent[g] == 0 for g in genera)
+    assert (parent[1:] < np.arange(1, n)).all()  # preorder numbering
+    offs = m.node_offsets
+    assert all(offs[g] == offs[g + 1] for g in [0] + genera)
+    assert w.n_rows == offs[-1] == len(m.delta_seed)
+    # replay every root-to-node path: presence stays 0/1
+    present = [None] * n
+    for i in range(n):
+        cur = set() if i == 0 else set(present[parent[i]])
+        for r in range(int(offs[i]), int(offs[i + 1])):
+            sid = int(m.delta_seed[r])
+            if m.delta_is_del[r]:
+                assert sid in cur
+                cur.remove(sid)
+            else:
+                assert sid not in cur
+                cur.add(sid)
+        present[i] = cur
+    first = {nm: i for i, nm in enumerate(m.node_ids)}
+
+    def hashes(name):
+        return {int(m.seed_hash[s]) for s in present[first[name]]}
+
+    a, b, c = hashes("sp0_n0"), hashes("sp1_n0"), hashes("sp4_n0")
+    assert len(a) > 200 and len(a & b) > 0.6 * len(a)  # sisters, 1% apart
+    assert len(a & c) < 0.05 * len(a)  # unrelated species
+    # positions: clade c lies in its own block of the coordinate space
+    sp4 = np.array(sorted(present[first["sp4_n0"]]))
+    assert (m.seed_pos[sp4] // 1500 == 4).all()
+    assert (m.seed_end[sp4] >= m.seed_pos[sp4]).all()
+    # round trip through the JAX package's file format
+    path = str(tmp_path / "a.ptmidx.npz")
+    save_meta_index(path, m)
+    back = load_meta_index(path)
+    assert np.array_equal(back.delta_seed, m.delta_seed)
+    assert back.node_ids == m.node_ids
+
+    is_parent = np.zeros(n, bool)
+    is_parent[parent[1:]] = True
+    for rank in ("species", "genus"):
+        sample_to_taxon, taxa = load_taxonomy(w.taxonomy, rank)
+        assert set(sample_to_taxon) == {nm for i, nm in enumerate(m.node_ids)
+                                        if not is_parent[i]}
+        assert len(taxa) == (7 if rank == "species" else len(genera))
+    assert sample_to_taxon["sp0_n7"] == sample_to_taxon["sp1_n7"]  # genus
+    assert len(w.taxa) == 3 and w.taxa[0].startswith("sp0_")
+    assert w.taxa[1].startswith("sp1_")
+    assert not any(is_parent[first[t]] for t in w.taxa)
+
+    names, seqs, quals = _fastq(w.reads1)
+    assert len(seqs) == w.n_reads == 2000 and w.n_target == 800
+    lens = np.array([len(s) for s in seqs])
+    assert lens.min() >= 35 and lens.max() <= 120
+    assert all(len(s) == len(q) for s, q in zip(seqs, quals))
+    assert set(quals[0][:4] + quals[0][-4:]) == {"-"} and quals[0][5] == "I"
+    low = sum(dust_score(s) > 5 for s in seqs)
+    assert 90 <= low <= 140  # the 100 repeats, and a random read or two
+    # the target reads come from the taxa's sequences: 35-mers of them (the
+    # middle of a read carries no damage) are found in the index's k-mers
+    # only indirectly, so count reads that share a seedmer hash with a taxon
+    from panmap_tpu_torch.meta.engine import sketch_meta_reads_full
+
+    p = m.params
+    reads, dup, _ = sketch_meta_reads_full(seqs, p.k, p.s, p.t, p.l, p.open)
+    taxa_h = set().union(*(hashes(t) for t in w.taxa))
+    hit = sum(len(d) for r, d in zip(reads, dup)
+              if len(set(r.hashes.tolist()) & taxa_h) >= 0.6 * len(r.hashes))
+    assert 0.8 * w.n_target <= hit <= 1.02 * w.n_target
