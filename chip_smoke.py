@@ -9,9 +9,16 @@ versions; then metagenomic abundance (--meta) at the size of the
 reference's demo 2, its scores held bit-equal to the host scorer and its
 abundances to the demo's own gates; then read assignment (--meta
 --filter-and-assign) at the shape of the reference's demo 3, batch mode
-over a manifest of 8 samples, and the pileup tally on the card.
+over a manifest of 8 samples, the pileup tally on the card, and the
+sharded paths (--mesh, --dist-*) and --profile.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
+    python3 chip_smoke.py --walls N   # only phase 5's stage walls, N runs
+
+(Phase 15c starts this script twice more with --dist-child, one rank
+each.  --walls times the port of the checkout the script lies in: a copy
+of this script in the root of another checkout, run in turns with this
+one in one call, compares two commits.)
 
 Phases, one line each with its time:
   1. card, versions
@@ -90,6 +97,27 @@ Phases, one line each with its time:
  13. the pileup tally: tally_columns_device on the card on the grouped
      entries phase 5's genotyping gave it, equal to the numpy bincounts,
      its time beside theirs (phases 5 and 8 tally on the card)
+ 15. (runs before 14) the sharded paths on the one card, each held to
+     its unsharded run: (a) a mesh of two shards on cuda:0: place_exact
+     on phase 4's sketch equal to the unsharded placer and the f64 host
+     engine, dispatch-to-sync walls and device kernel ms of the unsharded
+     sparse and full-stream routes and the sharded one; the short pipeline
+     placed on that mesh (run_placement with its placer; SW launch count
+     reset just before), the five outputs byte-equal to phase 5's, B1
+     launched as often as there; (b) TorchMetaScorer on the mesh, scores
+     bit-equal to phase 9's; the EM with its reads sharded over the mesh
+     within 2e-4 of the unsharded EM on phase 9's snapshot and on the
+     matrix pinned to the five haplotypes (phase 10's pinned run); (c) two
+     processes on cuda:0, ranks of one gloo group (tcp on localhost):
+     place_exact over the index rows sharded across both ranks equal to
+     the f64 host engine, the EM over reads sharded across both ranks the
+     same in both and within 2e-4 of (b)'s unsharded run, and phase 12's
+     manifest split between the ranks (run_batch), every sample's five
+     outputs byte-equal to its single run there; (d) run_pipeline with
+     --profile's directory on the card: the trace holds one
+     banded_sw_kernel device event per B1 launch, the outputs byte-equal
+     to phase 5's.  One card: the shards measure the cost of sharding,
+     not scaling over cards
  14. neither jax nor any module of panmap_tpu was imported; the count of
      the port's modules that were
 
@@ -104,8 +132,8 @@ pairs of 150 bp for the short-read path; 5,000 single-end ONT-like reads of
 150 bp and a 39,999-node meta index; for read assignment 400 species of
 25 nodes with a 16.5 kb genome each (10,191 nodes) and 250,000 single-end
 ancient-DNA-like reads of 35-120 bp.  The last lines are a JSON line of the
-meta readings, one of this slice's readings (assign, batch, tally), a JSON
-line listing the kernels and the result line;
+meta readings, one of the assign, batch and tally readings, one of phase
+15's (mesh), a JSON line listing the kernels and the result line;
 any failure raises (exit code != 0) and prints no result.  Needs one CUDA
 card; exits non-zero without one.
 """
@@ -256,7 +284,7 @@ def same_placement(got, want, what):
 def placement_phase(tp, TorchPlacer, w, cfg, dev, cpu):
     """TorchPlacer.place_exact on ``dev`` on both routes, each equal to
     TorchPlacer on ``cpu`` on the same route and to the f64 host engine.
-    Returns the phase's report."""
+    Returns (the phase's report, the sketch, the host engine's result)."""
     import torch
     from dataclasses import replace
 
@@ -301,16 +329,17 @@ def placement_phase(tp, TorchPlacer, w, cfg, dev, cpu):
                       f"(min of 3; {kern}), host f64 rescue "
                       f"{1e3 * rescue_s:.1f} ms")
     return ("; ".join(routes) + f"; index upload {upload_s:.2f}s; host f64 "
-            f"engine {host_s:.2f}s")
+            f"engine {host_s:.2f}s"), sk, exact
 
 
-def run_stages(tp, w, cfg, device, stats):
-    """The port's stages in _run_pipeline_inner's order; returns (best node,
-    n_reads, variants, stage walls, placed reads)."""
+def run_stages(tp, w, cfg, device, stats, placer=None):
+    """The port's stages in _run_pipeline_inner's order (placement on
+    ``placer`` where given); returns (best node, n_reads, variants, stage
+    walls, placed reads)."""
     walls = {}
     t0 = time.perf_counter()
     prefetch = tp._start_align_prefetch(cfg)
-    _, best, n_reads = tp.run_placement(cfg, w.idx, device)
+    _, best, n_reads = tp.run_placement(cfg, w.idx, device, placer=placer)
     walls["place"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     ref, placed, bam_join = tp.run_alignment(cfg, w.tree, best, device,
@@ -685,7 +714,8 @@ def meta_scorer_phase(td, w, out, dev):
     """Phase 9: TorchMetaScorer on ``dev`` against the port's --host-score
     route (the shared native host scorer) on the same sketch: max scores
     over every node and the snapshot over the run's candidates bit-equal.
-    Returns (report, readings)."""
+    Returns (report, readings, dict of what phase 15 reuses: cfg, reads,
+    candidates, max scores, snapshot, the EM's result on it)."""
     import numpy as np
     import torch
     from dataclasses import replace
@@ -731,7 +761,8 @@ def meta_scorer_phase(td, w, out, dev):
     ms = torch.zeros(len(reads), dtype=torch.int32, device=dev)
     if cuda:
         chunk_ms, chunk_top = device_kernel_ms(
-            lambda: fast.score_chunk(ci, ms, snap, np.asarray(cand)), top=5)
+            lambda: fast.score_chunk(ci, [ms], [snap], np.asarray(cand)),
+            top=5)
     else:
         chunk_ms, chunk_top = 0.0, "no device"
     read_lens, weights = td.em_inputs(cfg, reads, max_score)
@@ -770,7 +801,8 @@ def meta_scorer_phase(td, w, out, dev):
               f"EM on this snapshot (profiled) {em_s:.2f}s, "
               f"{res.n_iterations} SQUAREM steps, device kernels "
               f"{em_ms:.2f} ms: {em_top}")
-    return report, readings
+    return report, readings, dict(cfg=cfg, reads=reads, cand=cand,
+                                  max_score=max_score, snap=snap, em=res)
 
 
 def abundance(path):
@@ -1126,7 +1158,8 @@ def split_fastq(src, dst_pattern, n_parts):
 
 def batch_phase(tp, sw, w, out, dev, n_samples=8):
     """Phase 12 (see the module docstring).  Returns (report, readings, the
-    one-sample run's SW launches, their captured [(q, r, qlens, out)])."""
+    one-sample run's SW launches, their captured [(q, r, qlens, out)], the
+    samples' [(reads1, reads2)] and their single runs' prefixes)."""
     r1 = split_fastq(w.reads1, os.path.join(out, "batch_s{}_R1.fastq"),
                      n_samples)
     r2 = split_fastq(w.reads2, os.path.join(out, "batch_s{}_R2.fastq"),
@@ -1240,7 +1273,7 @@ def batch_phase(tp, sw, w, out, dev, n_samples=8):
               f"file: exit code 1, that sample FAILED, the other "
               f"{n_samples - 1} byte-equal; one sample in process: "
               f"{one_wall:.2f}s, SW kernel launches {launches}, byte-equal")
-    return report, readings, launches, captured
+    return report, readings, launches, captured, samples, singles
 
 
 def tally_phase(args, dev, reps=5):
@@ -1293,6 +1326,394 @@ def tally_phase(args, dev, reps=5):
     return report, readings
 
 
+def placement_view(res):
+    """A PlacementScores as plain data: {metric: [best, score, ties]}."""
+    return {m: [res.best_index[m], res.best_score[m], res.tied_indices[m]]
+            for m in res.best_index}
+
+
+def mesh_placement_phase(tp, TorchPlacer, pm, sw, w, sk, exact, out, dev,
+                         main_launches):
+    """Phase 15a: a mesh of two shards on ``dev``; its place_exact on phase
+    4's sketch against the unsharded placer (both routes) and the f64 host
+    engine, each timed; then the short pipeline placed on it (run_placement
+    with that placer), its outputs byte-equal to phase 5's, the SW launch
+    count reset just before and read just after.  Returns (report,
+    readings, the mesh, its placer)."""
+    import torch
+
+    mesh = pm.make_mesh(devices=[dev, dev])
+    t0 = time.perf_counter()
+    sharded = TorchPlacer(w.idx, dev, mesh=mesh)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if sharded.dev.csc is not None or len(sharded.dev.shards) != 2:
+        raise AssertionError("the mesh placer is not sharded")
+    one = TorchPlacer(w.idx, dev)
+    readings, parts = dict(shards=mesh.size, sharded_upload_s=upload_s), []
+    reduced = []
+    real = pm.reduce_partials
+
+    def counting(p, m):
+        reduced.append(len(p))
+        return real(p, m)
+
+    pm.reduce_partials = counting
+    try:
+        for name, placer, rcap in (
+                ("unsharded_sparse", one, TorchPlacer.RCAP_MAX),
+                ("unsharded_full_stream", one, 0),
+                ("sharded", sharded, TorchPlacer.RCAP_MAX)):
+            placer.RCAP_MAX = rcap
+            got = placer.place_exact(sk)
+            if got is None:
+                raise AssertionError(f"place_exact ({name}) refused")
+            same_placement(got, exact, f"place_exact ({name}) vs host "
+                                       f"engine")
+            step = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                fin = placer.place_exact_async(sk)
+                torch.cuda.synchronize()
+                step.append(time.perf_counter() - t1)
+                fin()
+            kern_ms, top = device_kernel_ms(
+                lambda: placer.place_exact_async(sk))
+            readings[name] = dict(dispatch_sync_ms=1e3 * min(step),
+                                  device_ms=kern_ms)
+            parts.append(f"{name} dispatch->sync {1e3 * min(step):.1f} ms "
+                         f"(min of 3), device kernels {kern_ms:.2f} ms: "
+                         f"{top}")
+    finally:
+        pm.reduce_partials = real
+        one.RCAP_MAX = TorchPlacer.RCAP_MAX
+    if not reduced or set(reduced) != {2}:
+        raise AssertionError(f"the sharded placer reduced {reduced}")
+
+    cfg, stats = pipeline_cfg(tp, w, out, "mesh_pipeline"), {}
+    sw.LAUNCHES = 0
+    best, n_reads, _, walls, _ = run_stages(tp, w, cfg, dev, stats,
+                                            placer=sharded)
+    launches = sw.LAUNCHES
+    if launches != main_launches:
+        raise AssertionError(f"the pipeline on the mesh launched the SW "
+                             f"kernel {launches} times, phase 5 "
+                             f"{main_launches}")
+    same_outputs(cfg.output, os.path.join(out, "device", "sample"),
+                 "phase 5's run")
+    readings.update(pipeline_wall_s=walls["total"],
+                    pipeline_place_s=walls["place"], sw_launches=launches)
+    report = (f"a mesh of 2 shards on {dev}: place_exact == unsharded == "
+              f"f64 host engine; sharded index upload {upload_s:.2f}s; "
+              + "; ".join(parts)
+              + f"; the pipeline placed on the mesh -> {best}: "
+              + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
+              + f", SW launches {launches}, the five outputs byte-equal to "
+              f"phase 5's")
+    return report, readings, mesh
+
+
+def mesh_meta_phase(td, em, pm, TorchMetaScorer, mw, scored, mesh, dev):
+    """Phase 15b: TorchMetaScorer on the mesh, its scores bit-equal to
+    phase 9's; the EM with its reads sharded over the mesh within 2e-4 of
+    the unsharded EM, on phase 9's snapshot and on the matrix pinned to the
+    five haplotypes (phase 10's --em-candidates run).  Returns (report,
+    readings, the pinned EM's inputs and unsharded result)."""
+    import numpy as np
+    import torch
+
+    cfg, reads, cand = scored["cfg"], scored["reads"], scored["cand"]
+    t0 = time.perf_counter()
+    fast = TorchMetaScorer(mw.midx, reads, dev, mesh=mesh)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms, snap = fast.score_all(cand)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    if not np.array_equal(ms, scored["max_score"]) or not torch.equal(
+            snap, scored["snap"]):
+        raise AssertionError("the mesh scorer's scores != phase 9's")
+    id_of = {nm: i for i, nm in enumerate(mw.midx.node_ids)}
+    pinned = [id_of[h] for h in mw.haplotypes]
+    _, psnap = fast.score_all(pinned)
+    lens, weights = td.em_inputs(cfg, reads, scored["max_score"])
+    readings = dict(scorer_prep_s=prep_s, scorer_score_s=score_s)
+    parts = []
+    kw = dict(eta=cfg.em_convergence_threshold,
+              max_change_threshold=cfg.em_delta_threshold,
+              max_iterations=cfg.em_maximum_iterations,
+              max_rounds=cfg.em_maximum_rounds)
+    for name, S, cols in (("snapshot", snap, cand), ("pinned", psnap,
+                                                     pinned)):
+        names = [mw.midx.node_ids[n] for n in cols]
+        res = {}
+        for how, m in (("unsharded", None), ("sharded", mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[how] = em.run_squarem(S, lens, weights, names, mesh=m, **kw)
+            res[how + "_s"] = time.perf_counter() - t0
+        a, b = res["unsharded"], res["sharded"]
+        drift = float(np.abs(a.props - b.props).max()) if len(
+            a.props) == len(b.props) else np.inf
+        if a.node_names != b.node_names or drift > 2e-4:
+            raise AssertionError(f"sharded EM ({name}) vs unsharded: "
+                                 f"{len(a.node_names)} / "
+                                 f"{len(b.node_names)} columns, drift "
+                                 f"{drift}")
+        readings[f"em_{name}"] = dict(
+            R=len(reads), M=len(cols), drift=drift,
+            unsharded_s=res["unsharded_s"], sharded_s=res["sharded_s"],
+            unsharded_steps=a.n_iterations, sharded_steps=b.n_iterations)
+        parts.append(f"EM on the {name} ({len(reads)} x {len(cols)}): "
+                     f"unsharded {res['unsharded_s']:.3f}s / "
+                     f"{a.n_iterations} steps, sharded {res['sharded_s']:.3f}"
+                     f"s / {b.n_iterations} steps, max |diff| {drift:.1e}")
+        if name == "pinned":
+            em_case = dict(S=psnap.cpu().numpy(), lens=lens, weights=weights,
+                           names=names, props=a.props, kw=kw)
+    report = (f"TorchMetaScorer on the mesh: scores bit-equal to phase 9's "
+              f"(host prep + upload {prep_s:.2f}s, scoring {score_s:.3f}s); "
+              + "; ".join(parts))
+    return report, readings, em_case
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        return so.getsockname()[1]
+
+
+def dist_phase(w, sk, exact, em_case, samples, singles, out, timeout=400):
+    """Phase 15c: two processes on the one card over gloo (this script
+    with --dist-child), each a rank of one group: place_exact over index
+    rows sharded across both ranks, the EM over reads sharded across both
+    ranks, and the phase-12 manifest split between them.  Every sample's
+    outputs byte-equal to its single run of phase 12.  Returns (report,
+    readings)."""
+    import pickle
+
+    import numpy as np
+
+    d = os.path.join(out, "dist")
+    os.makedirs(d, exist_ok=True)
+    manifest = os.path.join(d, "manifest.txt")
+    prefixes = [os.path.join(d, f"s{k}", "sample") for k in range(len(samples))]
+    with open(manifest, "w") as fh:
+        for (r1, r2), prefix in zip(samples, prefixes):
+            fh.write(f"{r1} {r2} {prefix}\n")
+    data = os.path.join(d, "inputs.pkl")
+    with open(data, "wb") as fh:
+        pickle.dump(dict(idx=w.idx, tree=w.tree, sk=sk,
+                         exact=placement_view(exact), em=em_case,
+                         manifest=manifest), fh)
+    addr = f"localhost:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-child", str(r),
+         "2", addr, data, os.path.join(d, f"rank{r}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n".join(
+            f"rank {r} (exit {p.returncode}):\n{log[-3000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    a, b = ranks
+    if a["em_props"] != b["em_props"] or a["em_names"] != b["em_names"]:
+        raise AssertionError("the ranks' EMs differ")
+    drift = float(np.abs(np.array(a["em_props"]) - em_case["props"]).max())
+    if a["em_names"] != list(em_case["names"]) or drift > 2e-4:
+        raise AssertionError(f"cross-rank EM vs one process: drift {drift}")
+    for k, prefix in enumerate(prefixes):
+        same_outputs(prefix, singles[k], f"sample {k}'s single run")
+    readings = dict(wall_s=wall, em_drift=drift, ranks=ranks)
+    report = (f"2 ranks on one card over gloo ({addr}), "
+              f"{wall:.1f}s for both: "
+              + "; ".join(f"rank {r['rank']} ({r['card']}, mesh of "
+                          f"{r['mesh_size']}): index upload "
+                          f"{r['upload_s']:.2f}s, place_exact == f64 host "
+                          f"engine, dispatch->sync {r['place_ms']:.1f} ms; "
+                          f"EM {r['em_s']:.3f}s / {r['em_steps']} steps; "
+                          f"batch of {r['n_samples']} samples "
+                          f"{r['batch_s']:.2f}s, exit code {r['batch_rc']}"
+                          for r in ranks)
+              + f"; EM equal in both ranks, max |diff| to one process "
+              f"{drift:.1e}; the {len(prefixes)} samples' outputs "
+              f"byte-equal to their single runs")
+    return report, readings
+
+
+def dist_child(rank, nprocs, addr, data, out):
+    """One rank of phase 15c (see dist_phase)."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from panmap_tpu_torch import pipeline as tp
+    from panmap_tpu_torch.meta import em
+    from panmap_tpu_torch.parallel import dist, mesh as pm
+    from panmap_tpu_torch.place.query_torch import TorchPlacer
+    from panmap_tpu_torch.utils.device import as_device
+
+    lines = []
+    if not dist.maybe_initialize(addr, nprocs, rank, log=lines.append):
+        raise RuntimeError("no process group")
+    dev = as_device(None)
+    with open(data, "rb") as fh:
+        d = pickle.load(fh)
+    mesh = pm.make_mesh()
+    rep = dict(rank=mesh.rank, card=str(dev), mesh_size=mesh.size)
+    if mesh.size != nprocs or mesh.devices != [dev]:
+        raise AssertionError(f"mesh {mesh}")
+    t0 = time.perf_counter()
+    placer = TorchPlacer(d["idx"], dev, mesh=mesh)
+    torch.cuda.synchronize()
+    rep["upload_s"] = time.perf_counter() - t0
+    got = placer.place_exact(d["sk"])
+    if got is None or placement_view(got) != d["exact"]:
+        raise AssertionError(f"rank {rank}: place_exact != host engine")
+    step = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        placer.place_exact_async(d["sk"])()
+        step.append(time.perf_counter() - t0)
+    rep["place_ms"] = 1e3 * min(step)
+    e = d["em"]
+    t0 = time.perf_counter()
+    res = em.run_squarem(torch.from_numpy(e["S"]).to(dev), e["lens"],
+                         e["weights"], e["names"], mesh=mesh, **e["kw"])
+    rep.update(em_s=time.perf_counter() - t0, em_steps=res.n_iterations,
+               em_names=res.node_names, em_props=res.props.tolist())
+    cfg = tp.PipelineConfig(panman="synthetic", batch_file=d["manifest"],
+                            log=lines.append)
+    t0 = time.perf_counter()
+    rep["batch_rc"] = tp.run_batch(cfg, device=dev, idx=d["idx"],
+                                   tree=d["tree"])
+    rep["batch_s"] = time.perf_counter() - t0
+    own = dist.process_read_shard(len(tp.read_batch_file(d["manifest"])))
+    rep["n_samples"] = own.stop - own.start
+    rep["lines"] = [str(x) for x in lines]
+    dist.shutdown()
+    with open(out, "w") as fh:
+        json.dump(rep, fh)
+    return 0 if rep["batch_rc"] == 0 else 1
+
+
+def profile_phase(tp, sw, w, out, dev, main_launches):
+    """Phase 15d: run_pipeline with --profile's profile_dir on the card
+    (the index from a saved file, the synthetic tree in place of a PanMAN),
+    SW launch count reset just before and read just after; the trace holds
+    the SW kernel's device event and the outputs are byte-equal to phase
+    5's.  Returns (report, readings)."""
+    import glob
+
+    from panmap_tpu_torch.io.index_io import save_index
+
+    d = os.path.join(out, "profile")
+    os.makedirs(d, exist_ok=True)
+    panman = os.path.join(d, "x.panman")
+    open(panman, "wb").close()
+    os.utime(panman, (0, 0))  # older than the saved index: it is loaded
+    idx_path = os.path.join(d, "x.ptidx.npz")
+    save_index(idx_path, w.idx)
+    cfg = pipeline_cfg(tp, w, out, "profile_run")
+    cfg.panman, cfg.index_path = panman, idx_path
+    cfg.profile_dir = os.path.join(d, "trace")
+    lines = []
+    cfg.log = lambda m, *a, **k: lines.append(m)
+    load = tp.load_panman
+    tp.load_panman = lambda path: w.tree
+    sw.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        tp.run_pipeline(cfg, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        tp.load_panman = load
+    launches = sw.LAUNCHES
+    if launches != main_launches:
+        raise AssertionError(f"the profiled pipeline launched the SW kernel "
+                             f"{launches} times, phase 5 {main_launches}")
+    same_outputs(cfg.output, os.path.join(out, "device", "sample"),
+                 "phase 5's run")
+    traces = glob.glob(os.path.join(cfg.profile_dir, "*.pt.trace.json"))
+    if len(traces) != 1 or f"[profile] trace written to {cfg.profile_dir}" \
+            not in lines:
+        raise AssertionError(f"traces {traces}, log {lines[-3:]}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    sw_ev = [e for e in kern if "banded_sw_kernel" in e.get("name", "")]
+    if len(sw_ev) != launches:
+        raise AssertionError(f"{len(sw_ev)} banded_sw_kernel events in the "
+                             f"trace, {launches} launches")
+    size = os.path.getsize(traces[0])
+    readings = dict(wall_s=wall, trace_bytes=size, kernel_events=len(kern),
+                    sw_launches=launches, sw_events=len(sw_ev),
+                    sw_event_us=[e.get("dur") for e in sw_ev])
+    report = (f"run_pipeline with --profile: {wall:.2f}s, trace "
+              f"{os.path.basename(traces[0])} ({size} B, {len(events)} "
+              f"events, {len(kern)} device kernels) holds "
+              f"{len(sw_ev)} banded_sw_kernel event(s) "
+              f"({', '.join(str(e.get('dur')) for e in sw_ev)} us); SW "
+              f"launches {launches}; the five outputs byte-equal to phase "
+              f"5's")
+    return report, readings
+
+
+def walls_phase(args, n_runs):
+    """--walls: both builds, the short and the meta workload, then phase
+    5's stages and phase 10's run_meta on the card n_runs times each, after
+    one run of each that warms the card up and is not counted; one JSON
+    line of each run's stage walls."""
+    import torch
+
+    from panmap_tpu_torch import _kernels, native
+    from panmap_tpu_torch import pipeline as tp
+    from panmap_tpu_torch.meta import driver as td
+    from panmap_tpu_torch.synthetic import make_meta_workload, make_workload
+
+    dev = torch.device("cuda", 0)
+    _kernels.lib()
+    if native.get_lib() is None:
+        raise RuntimeError(f"the native host library did not build:\n"
+                           f"{native.build_error}")
+    shutil.rmtree(args.out, ignore_errors=True)
+    w = make_workload(os.path.join(args.out, "reads"), seed=args.seed)
+    mw = make_meta_workload(os.path.join(args.out, "meta_reads"),
+                            seed=args.seed)
+    runs, meta = [], []
+    for k in range(n_runs + 1):
+        cfg = pipeline_cfg(tp, w, args.out, f"walls{k}")
+        runs.append(run_stages(tp, w, cfg, dev, {})[3])
+    for k in range(n_runs + 1):
+        cfg, stats = meta_cfg(td, mw, args.out, f"meta_walls{k}"), {}
+        t0 = time.perf_counter()
+        if td.run_meta(cfg, midx=mw.midx, device=dev, stats=stats) != 0:
+            raise AssertionError("run_meta failed")
+        stats["wall_s"] = time.perf_counter() - t0
+        meta.append(stats)
+    log(json.dumps({"port": REPO, "walls": runs[1:], "meta": meta[1:]}))
+    return 0
+
+
 def long_phases(args, tp, long_dp, rng, dev):
     """Phases 7 and 8.  Returns (launches on the main path, kernel ms over
     them, plain ms, max |diff|, band cells, (bound ms, what bounds it))."""
@@ -1326,6 +1747,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, ".smoke"),
                     help="scratch directory for reads and outputs")
+    ap.add_argument("--dist-child", nargs=5, default=None,
+                    metavar=("RANK", "NPROCS", "HOST:PORT", "INPUTS", "OUT"),
+                    help="run one rank of phase 15c (started by phase 15c)")
+    ap.add_argument("--walls", type=int, default=0, metavar="N",
+                    help="only time phase 5's stages N times on the card")
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
@@ -1335,7 +1761,12 @@ def main(argv=None):
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.dist_child:
+        rank, nprocs, addr, data, out = args.dist_child
+        return dist_child(int(rank), int(nprocs), addr, data, out)
     sys.path.insert(0, REPO)
+    if args.walls:
+        return walls_phase(args, args.walls)
     import numpy as np
 
     import threading
@@ -1344,6 +1775,9 @@ def main(argv=None):
     from panmap_tpu_torch import pipeline as tp
     from panmap_tpu_torch.align import long_dp, sw
     from panmap_tpu_torch.meta import driver as td
+    from panmap_tpu_torch.meta import em
+    from panmap_tpu_torch.meta.engine_torch import TorchMetaScorer
+    from panmap_tpu_torch.parallel import mesh as pm
     from panmap_tpu_torch.place.query_torch import TorchPlacer
     from panmap_tpu_torch.synthetic import (make_assign_workload,
                                             make_meta_workload, make_workload)
@@ -1405,7 +1839,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     pcfg = tp.PipelineConfig(panman="synthetic", reads1=w.reads1,
                              reads2=w.reads2, output="", log=log)
-    report = placement_phase(tp, TorchPlacer, w, pcfg, dev, cpu)
+    report, sk, exact = placement_phase(tp, TorchPlacer, w, pcfg, dev, cpu)
     log(f"[4] place_exact on {len(w.idx.node_ids)} nodes / {w.n_rows} rows "
         f"== TorchPlacer on CPU tensors == f64 host engine: {report}; "
         f"{time.perf_counter() - t0:.1f}s")
@@ -1454,7 +1888,7 @@ def main(argv=None):
 
     # 9. the meta scorer on the card vs the host scorer
     t0 = time.perf_counter()
-    report, meta = meta_scorer_phase(td, mw, args.out, dev)
+    report, meta, scored = meta_scorer_phase(td, mw, args.out, dev)
     log(f"[9] {report}; {time.perf_counter() - t0:.1f}s")
 
     # 10. the abundance pipeline on the card; neither kernel is on it
@@ -1486,8 +1920,8 @@ def main(argv=None):
 
     # 12. batch mode on the card
     t0 = time.perf_counter()
-    report, batch, batch_launches, batch_captured = batch_phase(
-        tp, sw, w, args.out, dev)
+    (report, batch, batch_launches, batch_captured, batch_samples,
+     batch_singles) = batch_phase(tp, sw, w, args.out, dev)
     # the kernel against its plain version on this path's own inputs
     for qm, rm, lm, res in batch_captured:
         e, k_ms, p_ms = compare_sw(sw, qm, rm, lm, reps=20)
@@ -1509,6 +1943,32 @@ def main(argv=None):
     report, tally = tally_phase(tallied, dev)
     log(f"[13] {report}; {time.perf_counter() - t0:.1f}s")
 
+    # 15. the mesh (two shards on the card), two ranks on the card, and
+    # --profile; before 14, so that its check covers them
+    t0 = time.perf_counter()
+    report, mesh_r, mesh = mesh_placement_phase(
+        tp, TorchPlacer, pm, sw, w, sk, exact, args.out, dev, launches)
+    log(f"[15a] {report}; {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    sw.LAUNCHES = long_dp.LAUNCHES = 0
+    report, meta_r, em_case = mesh_meta_phase(td, em, pm, TorchMetaScorer,
+                                              mw, scored, mesh, dev)
+    if sw.LAUNCHES or long_dp.LAUNCHES:
+        raise AssertionError("a kernel launched on the mesh's meta path")
+    mesh_r["meta"] = meta_r
+    del scored
+    log(f"[15b] {report}; {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    report, mesh_r["dist"] = dist_phase(w, sk, exact, em_case, batch_samples,
+                                        batch_singles, args.out)
+    log(f"[15c] {report}; {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    report, mesh_r["profile"] = profile_phase(tp, sw, w, args.out, dev,
+                                              launches)
+    log(f"[15d] {report}; {time.perf_counter() - t1:.1f}s")
+    mesh_r["phase_s"] = time.perf_counter() - t0
+    log(f"[15] {mesh_r['phase_s']:.1f}s")
+
     # 14. no jax and nothing of the JAX package anywhere
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "jaxlib", "panmap_tpu")
@@ -1522,6 +1982,7 @@ def main(argv=None):
 
     log(json.dumps({"meta": meta}))
     log(json.dumps({"assign": assign, "batch": batch, "tally": tally}))
+    log(json.dumps({"mesh": mesh_r}))
 
     log(json.dumps({"kernels": [{
         "name": "banded_sw",
@@ -1530,6 +1991,8 @@ def main(argv=None):
         "replaces": "panmap_tpu/align/pallas_sw.py:211",
         "launches": launches,
         "launches_one_sample_batch": batch_launches,
+        "launches_mesh_pipeline": mesh_r["sw_launches"],
+        "launches_profiled_pipeline": mesh_r["profile"]["sw_launches"],
         "max_abs_err": max(errs),
         "ms": ms_m,
         "plain_ms": plain_m,

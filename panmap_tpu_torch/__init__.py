@@ -1,7 +1,7 @@
 """panmap_tpu_torch: the PyTorch/CUDA port of panmap_tpu.
 
 The single-sample path (index -> place -> align -> genotype -> consensus)
-and metagenomic abundance (--meta) on one NVIDIA GPU, as a package of its
+and metagenomic abundance (--meta) on NVIDIA GPUs, as a package of its
 own: it imports torch, numpy and the standard library, never jax and
 nothing of panmap_tpu (the JAX package stays the reference the port is
 tested against; only the tests import both).
@@ -17,6 +17,9 @@ Device layers, written for the GPU:
              (batch.py, longread.py);
  - meta/     the presence-bitmap read scorer (engine_torch.py), the SQUAREM
              EM (em.py) and the --meta driver (driver.py);
+ - parallel/ --mesh and --dist-*: the mesh of shards whose partial sums
+             reduce over torch.distributed (mesh.py), the gloo process
+             group (dist.py);
  - pipeline  the stage runner; __main__ the CLI; _kernels the nvcc build.
 
 Host layers, carried over from panmap_tpu under the same sub-package and

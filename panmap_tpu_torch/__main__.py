@@ -1,14 +1,15 @@
-"""panmap_tpu_torch CLI on one GPU: the single-sample pipeline, batch mode
-(--batch), metagenomic abundance (--meta), read assignment (--meta
---filter-and-assign) and their batch form (--meta --batch).
+"""panmap_tpu_torch CLI on NVIDIA GPUs: the single-sample pipeline, batch
+mode (--batch), metagenomic abundance (--meta), read assignment (--meta
+--filter-and-assign) and their batch form (--meta --batch), with --mesh
+(sharded placement scoring, meta scoring and EM), --dist-* (a process
+group over torch.distributed, one rank per card) and --profile (a
+torch.profiler trace).
 
     python -m panmap_tpu_torch [options] <panman> [reads1] [reads2]
 
 The option surface is panmap_tpu's own (build_parser is carried over
-unchanged, so both CLIs parse the same command lines).  Options whose JAX
-path runs device code this port does not have yet (--mesh > 1, --dist-*,
---profile) raise NotImplementedError; the host-only tools (--simulate, --dump-*) run
-the carried simulate.py / tools.py.
+unchanged, so both CLIs parse the same command lines); the host-only tools
+(--simulate, --dump-*) run the carried simulate.py / tools.py.
 """
 
 from __future__ import annotations
@@ -222,18 +223,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unsupported(args):
-    if args.dist_coordinator or args.dist_nprocs or args.dist_pid >= 0:
-        return "--dist-* is not ported yet (ROADMAP B7)"
-    return None
-
-
 def main(argv=None):
+    """Parse, join a process group when --dist-* or the torchrun
+    environment asks for one (before any device use), run, and leave the
+    group again."""
+    from .parallel import dist
+
+    try:
+        return _main(argv)
+    finally:
+        dist.shutdown()
+
+
+def _main(argv):
     raw = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     parser.prog = "panmap_tpu_torch"
     parser.description = ("pangenome placement, alignment, and genotyping "
-                          "on one NVIDIA GPU (PyTorch/CUDA port)")
+                          "on NVIDIA GPUs (PyTorch/CUDA port)")
     if "--help-all" in raw or "-h" in raw or "--help" in raw:
         parser.print_help()
         return 0
@@ -246,6 +253,11 @@ def main(argv=None):
                  no_progress=args.no_progress)
     if not args.random_seed and args.seed != 42:
         args.random_seed = str(args.seed)
+
+    from .parallel.dist import maybe_initialize
+
+    maybe_initialize(args.dist_coordinator, args.dist_nprocs, args.dist_pid,
+                     log=log)
 
     if args.simulate:
         from .simulate import run_simulate
@@ -271,9 +283,6 @@ def main(argv=None):
         return run_dump_sequences(args.panman, args.dump_sequences,
                                   args.simulate_snps, out, args.random_seed, log)
 
-    why = _unsupported(args)
-    if why:
-        raise NotImplementedError(why)
     if args.meta:
         return _run_meta(args, out, log)
     cfg = PipelineConfig(

@@ -1,4 +1,4 @@
-"""Metagenomic abundance (--meta) on one GPU: the port's copy of
+"""Metagenomic abundance (--meta) on the GPU: the port's copy of
 panmap_tpu/meta/driver.py::run_meta, split into its stages.
 
 The stages and every host piece are carried over from the JAX package
@@ -16,8 +16,10 @@ What changes:
    numpy f64 EM at any size under --em-f64;
  - --filter-and-assign goes to meta/assign.py::run_filter_and_assign with
    the device (its batched scorer is TorchMetaScorer.assignment_pass);
- - no mesh and no backend warm-up (jax programs); --mesh > 1 raises
-   NotImplementedError.
+ - --mesh resolves to a parallel.mesh.Mesh (_resolve_meta_mesh), given to
+   the device scorer (this process's shards) and the torch EM (every
+   rank's shards);
+ - no backend warm-up (jax programs).
 """
 
 from __future__ import annotations
@@ -124,11 +126,20 @@ def ensure_meta_index(cfg: MetaConfig, tree=None):
     return midx, tree
 
 
-def check_supported(cfg: MetaConfig):
-    """Raise NotImplementedError for meta options whose device path this
-    port does not have yet (each names its ROADMAP item)."""
-    if cfg.mesh > 1:
-        raise NotImplementedError("--mesh > 1 is not ported yet (ROADMAP B7)")
+def _resolve_meta_mesh(cfg: MetaConfig):
+    """--mesh for the meta path (the placement pipeline's semantics: 0 =
+    auto, a mesh when the run has more than one card; 1 = off; N = N
+    shards, at most the run's cards).  Returns a parallel.mesh.Mesh or
+    None."""
+    if cfg.mesh == 1:
+        return None
+    from ..parallel.mesh import global_device_count, make_mesh
+
+    n_avail = global_device_count()
+    want = cfg.mesh if cfg.mesh > 0 else (n_avail if n_avail > 1 else 1)
+    if want <= 1:
+        return None
+    return make_mesh(min(want, n_avail))
 
 
 def sketch(cfg: MetaConfig, midx):
@@ -159,16 +170,17 @@ def sketch(cfg: MetaConfig, midx):
     return reads, dup_index
 
 
-def make_scorers(cfg: MetaConfig, midx, reads, device):
+def make_scorers(cfg: MetaConfig, midx, reads, device, mesh=None):
     """(MetaScorer, TorchMetaScorer on ``device`` or None): the device
     scorer takes large read sets unless pseudochain, the scores TSV or
-    --host-score asks for the host one."""
+    --host-score asks for the host one.  ``mesh``: its shards split the
+    device scorer's reads."""
     scorer = MetaScorer(midx, reads)
     fast = None
     if (not cfg.pseudochain and not cfg.write_read_scores_unfiltered
             and len(reads) >= FAST_MIN_READS and not cfg.host_score):
         t0 = time.time()
-        fast = TorchMetaScorer(midx, reads, device)
+        fast = TorchMetaScorer(midx, reads, device, mesh=mesh)
         cfg.log(f"[meta] presence events built in {time.time()-t0:.1f}s "
                 f"({len(fast.ev_pos)} events)")
     return scorer, fast
@@ -266,9 +278,11 @@ def em_inputs(cfg: MetaConfig, reads, max_score):
     return read_lens, weights
 
 
-def run_em(cfg: MetaConfig, snap, read_lens, weights, cand_names, device):
+def run_em(cfg: MetaConfig, snap, read_lens, weights, cand_names, device,
+           mesh=None):
     """The abundance EM on the snapshot: host numpy f64 with --em-f64,
-    else the port's run_squarem routing."""
+    else the port's run_squarem routing (over ``mesh``'s shards where it
+    routes to the torch EM)."""
     kw = dict(eta=cfg.em_convergence_threshold,
               max_change_threshold=cfg.em_delta_threshold,
               max_iterations=cfg.em_maximum_iterations,
@@ -282,7 +296,8 @@ def run_em(cfg: MetaConfig, snap, read_lens, weights, cand_names, device):
         return host_run_squarem(S_np.astype(np.uint16), read_lens, weights,
                                 cand_names, backend="numpy", **kw)
     return run_squarem(snap, read_lens, weights, cand_names,
-                       prefer_cpu=cfg.host_score, device=device, **kw)
+                       prefer_cpu=cfg.host_score, device=device, mesh=mesh,
+                       **kw)
 
 
 def write_abundance(cfg: MetaConfig, midx, scorer, res) -> str:
@@ -314,7 +329,6 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
     dict receives the route ("device" or "host"), the stage walls in
     seconds (sketch_s, prep_s, score_s, em_s), the EM's SQUAREM steps
     (em_iters) and the EM matrix's shape (R, M)."""
-    check_supported(cfg)
     native.require_lib()  # a failed build raises here, not a silent slow path
     # the index is built (forking build workers) or loaded BEFORE the first
     # CUDA call: a CUDA context does not survive fork
@@ -329,10 +343,14 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
         return run_filter_and_assign(cfg, midx, device)
     stats = {} if stats is None else stats
 
+    # CPU tensors (the parity tests' choice) get no mesh
+    mesh = _resolve_meta_mesh(cfg) if device.type == "cuda" else None
+    if mesh is not None:
+        device = mesh.devices[0]
     t0 = time.perf_counter()
     reads, dup_index = sketch(cfg, midx)
     t1 = time.perf_counter()
-    scorer, fast = make_scorers(cfg, midx, reads, device)
+    scorer, fast = make_scorers(cfg, midx, reads, device, mesh)
     candidates = rank_candidates(cfg, midx, scorer, fast)
     if candidates is None:
         return 1
@@ -365,7 +383,7 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
         return 0
     cand_names = [midx.node_ids[n] for n in candidates]
     t0 = time.perf_counter()
-    res = run_em(cfg, snap, read_lens, weights, cand_names, device)
+    res = run_em(cfg, snap, read_lens, weights, cand_names, device, mesh)
     em_dt = time.perf_counter() - t0
     stats.update(em_s=em_dt, em_iters=res.n_iterations)
     if res.n_iterations:

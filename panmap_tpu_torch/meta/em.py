@@ -1,4 +1,4 @@
-"""SQUAREM abundance EM on one GPU (counterpart of
+"""SQUAREM abundance EM on the GPU (counterpart of
 panmap_tpu/meta/engine.py::run_squarem_device and _squarem_body, B6).
 
 The JAX package fuses the whole EM (masked SQUAREM steps, converge -> drop
@@ -80,35 +80,68 @@ def collapse_identical(S: torch.Tensor, R: int, names: list):
 
 def squarem(S: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
             eta: float = 1e-5, mct: float = 0.0, max_iterations: int = 1000,
-            max_rounds: int = 5):
+            max_rounds: int = 5, mesh=None):
     """Masked SQUAREM over the score matrix S [R, M] (scores of read j at
     column i), read lengths ``lens`` [R] and weights ``w`` [R], all columns
     alive at the start; float32 throughout.  Returns (props float32 [M],
-    alive bool [M], SQUAREM steps across rounds)."""
-    dev = S.device
+    alive bool [M], SQUAREM steps across rounds).
+
+    ``mesh`` (parallel/mesh.py; R a multiple of mesh.size): the reads split
+    over the shards, this process computing its own, and the three sums
+    over reads (the weight total, u @ Ps and the log-likelihood: the rsum
+    sites of _squarem_body(axis_name=...)) reduced over the mesh; the
+    column vectors stay whole on every rank, on the first shard's device.
+    Without a mesh the one shard is the whole matrix and the sums are its
+    own."""
     log_err = float(np.log(ERROR_RATE))
     log_1me = float(np.log1p(-ERROR_RATE))
-    Sf = S.to(torch.float32)
-    lp = (lens.to(torch.float32)[:, None] - Sf) * log_err + Sf * log_1me
-    del Sf
-    w = w.to(torch.float32)
-    wsum = w.sum()
+    if mesh is None:
+        dev = S.device
+        parts = [(S, lens, w)]
+
+        def rsum(xs):
+            return xs[0]
+    else:
+        from ..parallel.mesh import reduce_partials, split_rows
+
+        dev = mesh.devices[0]
+        parts = split_rows(mesh, S, lens, w)
+
+        def rsum(xs):
+            return reduce_partials(xs, mesh)
+    lps, ws = [], []
+    for Sk, lk, wk in parts:
+        Sf = Sk.to(torch.float32)
+        lps.append((lk.to(torch.float32)[:, None] - Sf) * log_err
+                   + Sf * log_1me)
+        ws.append(wk.to(torch.float32))
+        del Sf
+    wsum = rsum([wk.sum() for wk in ws])
     M = S.shape[1]
 
     def scale(alive):
-        lpm = torch.where(alive[None, :], lp, -torch.inf)
-        mx = lpm.amax(dim=1, keepdim=True)
-        lpm -= mx
-        return lpm.exp_(), mx
+        out = []
+        for lp in lps:
+            lpm = torch.where(alive.to(lp.device)[None, :], lp, -torch.inf)
+            mx = lpm.amax(dim=1, keepdim=True)
+            lpm -= mx
+            out.append((lpm.exp_(), mx))
+        return out
 
-    def em(Ps, p):
-        den = Ps @ p
-        u = w / den.clamp_min(1e-30)
-        return (u @ Ps) * p / wsum
+    def em(plane, p):
+        us = []
+        for (Ps, _), wk in zip(plane, ws):
+            den = Ps @ p.to(Ps.device)
+            u = wk / den.clamp_min(1e-30)
+            us.append(u @ Ps)
+        return rsum(us) * p / wsum
 
-    def llh(Ps, mx, p):
-        den = Ps @ p
-        return (w * (mx[:, 0] + den.clamp_min(1e-30).log())).sum()
+    def llh(plane, p):
+        ls = []
+        for (Ps, mx), wk in zip(plane, ws):
+            den = Ps @ p.to(Ps.device)
+            ls.append((wk * (mx[:, 0] + den.clamp_min(1e-30).log())).sum())
+        return rsum(ls)
 
     def uniform(alive):
         n_alive = alive.sum()
@@ -119,7 +152,7 @@ def squarem(S: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
         return p / p.sum()
 
     alive = torch.ones(M, dtype=torch.bool, device=dev)
-    Ps, mx = scale(alive)
+    plane = scale(alive)
     p0 = uniform(alive)
     cur = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
@@ -129,16 +162,16 @@ def squarem(S: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
     while True:
         for _ in range(STEPS_PER_TURN):
             active = (~done) & (it < max_iterations)
-            p1 = norm(em(Ps, p0), alive)
-            p2 = norm(em(Ps, p1), alive)
+            p1 = norm(em(plane, p0), alive)
+            p2 = norm(em(plane, p1), alive)
             r = p1 - p0
             v = (p2 - p1) - r
             vn = torch.linalg.vector_norm(v)
             alpha = torch.where(vn > 0, -torch.linalg.vector_norm(r) / vn,
                                 -1.0)
             psq = norm(p0 - 2.0 * alpha * r + alpha * alpha * v, alive)
-            l2 = llh(Ps, mx, p2)
-            lsq = llh(Ps, mx, psq)
+            l2 = llh(plane, p2)
+            lsq = llh(plane, psq)
             use_sq = lsq > l2 - eta
             pn = torch.where(use_sq, psq, p2)
             ln = torch.where(use_sq, lsq, l2)
@@ -163,8 +196,8 @@ def squarem(S: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
         if n_pass == n_alive or rnd + 1 >= max_rounds or n_pass == 0:
             return p0, alive, int(tot)
         rnd += 1
-        del Ps
-        Ps, mx = scale(alive)
+        del plane
+        plane = scale(alive)
         p0 = uniform(alive)
         cur = torch.full_like(cur, -np.inf)
         it = torch.zeros_like(it)
@@ -175,48 +208,74 @@ def run_squarem_torch(S: torch.Tensor, read_lens: np.ndarray,
                       read_weights: np.ndarray, node_names: list,
                       eta: float = 1e-5, max_change_threshold: float = 0.0,
                       max_iterations: int = 1000,
-                      max_rounds: int = 5) -> EMResult:
+                      max_rounds: int = 5, mesh=None,
+                      row_block: int = 0) -> EMResult:
     """run_squarem_device's twin on the tensor S [R, M] (read j, column i)
-    on S's device: identical-column collapse, then the masked SQUAREM."""
+    on S's device: identical-column collapse, then the masked SQUAREM.
+
+    ``mesh``: the rows are padded with inert reads (score 0, length 0,
+    weight 0) to a multiple of ``row_block`` (the JAX package's padded row
+    count: its scorer's read blocks, or 4,096 for a host matrix) and the
+    EM runs sharded when the mesh has more than one shard and they divide
+    the padded rows, as run_squarem_device routes."""
     R, M = len(read_lens), len(node_names)
     if M == 0:
         return EMResult(node_names=[], props=np.empty(0), identical_groups={})
     keep, groups = collapse_identical(S, R, node_names)
     names = [node_names[i] for i in keep]
     dev = S.device
-    Sk = S[:R, torch.tensor(keep, device=dev)]
+    lens = np.asarray(read_lens, np.int32)
+    w = np.asarray(read_weights, np.float32)
+    n = 0 if mesh is None else mesh.size
+    rows = -(-R // row_block) * row_block if n and row_block else R
+    if n > 1 and rows % n == 0:
+        Sk = torch.zeros((rows, len(keep)), dtype=S.dtype, device=dev)
+        Sk[:R] = S[:R, torch.tensor(keep, device=dev)]
+        lens, w = (np.concatenate([x, np.zeros(rows - R, x.dtype)])
+                   for x in (lens, w))
+    else:
+        Sk, mesh = S[:R, torch.tensor(keep, device=dev)], None
     p, alive, iters = squarem(
-        Sk, torch.from_numpy(np.asarray(read_lens, np.int32)).to(dev),
-        torch.from_numpy(np.asarray(read_weights, np.float32)).to(dev),
+        Sk, torch.from_numpy(lens).to(dev), torch.from_numpy(w).to(dev),
         eta=eta, mct=max_change_threshold, max_iterations=max_iterations,
-        max_rounds=max_rounds)
+        max_rounds=max_rounds, mesh=mesh)
     sel = alive.cpu().numpy()
     return EMResult(node_names=[nm for nm, ok in zip(names, sel) if ok],
                     props=p.cpu().numpy().astype(np.float64)[sel],
                     identical_groups=groups, n_iterations=iters)
 
 
+READ_BLOCK = 4096  # the JAX scorer's read block (TpuMetaScorer.READ_CHUNK)
+
+
 def run_squarem(score_matrix, read_lens: np.ndarray,
                 read_weights: np.ndarray, node_names: list,
                 eta: float = 1e-5, max_change_threshold: float = 0.0,
                 max_iterations: int = 1000, max_rounds: int = 5,
-                prefer_cpu: bool = False, device=None) -> EMResult:
+                prefer_cpu: bool = False, device=None,
+                mesh=None) -> EMResult:
     """engine.run_squarem's routing: a tensor [R, M] runs the torch EM on
     its own device; a host matrix [M, R] with M x R > 5,000,000 runs it on
     ``device`` (on the CPU under ``prefer_cpu``, the JAX package's
     --host-score choice); anything smaller runs the numpy f64 EM
-    (meta/engine.py::run_squarem)."""
+    (meta/engine.py::run_squarem).  ``mesh``: the torch EM's reads shard
+    over it (see run_squarem_torch; the device snapshot's rows pad as the
+    JAX scorer's blocks do, to a multiple of 4,096 x the mesh's shards, a
+    host matrix's to a multiple of 4,096)."""
     kw = dict(eta=eta, max_change_threshold=max_change_threshold,
-              max_iterations=max_iterations, max_rounds=max_rounds)
+              max_iterations=max_iterations, max_rounds=max_rounds,
+              mesh=mesh)
     if isinstance(score_matrix, torch.Tensor):
+        block = READ_BLOCK * (mesh.size if mesh is not None else 1)
         return run_squarem_torch(score_matrix, read_lens, read_weights,
-                                 node_names, **kw)
+                                 node_names, row_block=block, **kw)
     M0, R0 = score_matrix.shape
     if M0 * R0 > 5_000_000:
         dev = torch.device("cpu") if prefer_cpu else torch.device(device)
         S = torch.from_numpy(np.ascontiguousarray(
             score_matrix.T.astype(np.int32))).to(dev)
         return run_squarem_torch(S, read_lens, read_weights, node_names,
-                                 **kw)
+                                 row_block=READ_BLOCK, **kw)
+    kw.pop("mesh")
     return host_run_squarem(score_matrix, read_lens, read_weights,
                             node_names, backend="numpy", **kw)

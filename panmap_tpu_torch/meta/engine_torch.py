@@ -1,4 +1,4 @@
-"""Metagenomic read scoring over a dense presence bitmap on one GPU
+"""Metagenomic read scoring over a dense presence bitmap on the GPU
 (counterpart of panmap_tpu/meta/engine_tpu.py::TpuMetaScorer, B5).
 
 A read's max-parsimony score at node n is max(fwd, rev), the number of its
@@ -75,10 +75,13 @@ class TorchMetaScorer:
     NODE_CHUNK = 2048
     READ_CHUNK = 4096
 
-    def __init__(self, midx, reads: list, device):
+    def __init__(self, midx, reads: list, device, mesh=None):
+        """``mesh``: a parallel.mesh.Mesh whose first device is ``device``
+        (where the scores are gathered); its shards split the reads."""
         self.midx = midx
         self.reads = reads
         self.device = torch.device(device)
+        self.mesh = mesh
         self.n_nodes = len(midx.node_ids)
 
         all_h = (np.concatenate([r.hashes for r in reads])
@@ -166,59 +169,82 @@ class TorchMetaScorer:
         # scores are <= S: int16 snapshots unless a read has more seedmers
         self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
 
-        # ONE upload of everything the chunk loop reads
-        dev = self.device
-        self._ev_key_t = torch.from_numpy(self._evp_key).to(dev)
-        self._ev_col_t = torch.from_numpy(ev_col).to(dev)
-        self._ev_del_t = torch.from_numpy(self._evp_delta).to(dev)
-        self._carries_t = torch.from_numpy(np.stack(self._carries)).to(dev)
-        self._fwd_t = torch.from_numpy(fwd_sl).to(dev)
-        self._rev_t = torch.from_numpy(rev_sl).to(dev)
+        # ONE upload of everything the chunk loop reads: the events and
+        # carries to every distinct device, the reads' keys to their shard
+        ev_host = (self._evp_key, ev_col, self._evp_delta,
+                   np.stack(self._carries))
+        devs = [self.device] if mesh is None else list(mesh.devices)
+        self._ev_on = {d: tuple(torch.from_numpy(x).to(d) for x in ev_host)
+                       for d in dict.fromkeys(devs)}
+        if mesh is None:
+            self._fwd_t = torch.from_numpy(fwd_sl).to(self.device)
+            self._rev_t = torch.from_numpy(rev_sl).to(self.device)
+            self._shards = [(self.device, self._fwd_t, self._rev_t)]
+        else:
+            # inert blocks: every slot on the all-zero dummy row
+            B, nd = self.READ_CHUNK, len(devs)
+            nb = max(-(-R // B), 1)
+            rpad = -(-nb // nd) * nd * B
+            keys = [np.concatenate([x, np.full((rpad - R, S), dummy,
+                                               np.int32)])
+                    for x in (fwd_sl, rev_sl)]
+            per = rpad // nd
+            self._shards = [
+                (d, *(torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
+                      for x in keys)) for i, d in enumerate(devs)]
 
     def overlap_coefficients(self) -> np.ndarray:
         """OC per dfs index as prefix sums of the presence events."""
         return overlap_coefficients_from_events(self.ev, self.n_nodes)
 
-    def presence(self, ci: int) -> torch.Tensor:
-        """Presence bitmap of node chunk ci: uint8 [n_rows, NODE_CHUNK]."""
+    def presence(self, ci: int, device=None) -> torch.Tensor:
+        """Presence bitmap of node chunk ci on ``device`` (default: the
+        scorer's): uint8 [n_rows, NODE_CHUNK]."""
+        key, col, delta, carries = self._ev_on[device or self.device]
         a, b = self._ev_bounds[ci], self._ev_bounds[ci + 1]
-        return presence_chunk(self._carries_t[ci], self._ev_key_t[a:b],
-                              self._ev_col_t[a:b], self._ev_del_t[a:b],
+        return presence_chunk(carries[ci], key[a:b], col[a:b], delta[a:b],
                               self.n_rows, self.NODE_CHUNK)
 
-    def score_chunk(self, ci: int, ms: torch.Tensor, snap: torch.Tensor,
-                    cand: np.ndarray):
-        """Fold node chunk ci into the running max ``ms`` int32 [R] and the
-        candidate snapshots ``snap`` [R, len(cand)] (in place)."""
+    def score_chunk(self, ci: int, ms: list, snap: list, cand: np.ndarray):
+        """Fold node chunk ci into the running max ``ms`` int32 and the
+        candidate snapshots ``snap`` [rows, len(cand)] of each shard's
+        reads (in place; one tensor a shard, on its device)."""
         C, B = self.NODE_CHUNK, self.READ_CHUNK
         lo = self._chunk_lo[ci]
         n_valid = min(C, self.n_nodes - lo)
         if n_valid <= 0:  # the chunk at n_nodes holds no node
             return
-        P = self.presence(ci)
         sel = np.flatnonzero((cand >= lo) & (cand < lo + n_valid))
-        sel_t = torch.from_numpy(sel).to(self.device)
-        cols_t = torch.from_numpy(cand[sel] - lo).to(self.device)
-        for r0 in range(0, len(self.reads), B):
-            r1 = min(r0 + B, len(self.reads))
-            m, sc = score_block(P, self._fwd_t[r0:r1], self._rev_t[r0:r1],
-                                n_valid)
-            torch.maximum(ms[r0:r1], m, out=ms[r0:r1])
-            if len(sel):
-                snap[r0:r1, sel_t] = sc[:, cols_t].to(snap.dtype)
+        bitmap = {}
+        for (dev, fwd, rev), ms_s, snap_s in zip(self._shards, ms, snap):
+            if dev not in bitmap:
+                bitmap[dev] = (self.presence(ci, dev),
+                               torch.from_numpy(sel).to(dev),
+                               torch.from_numpy(cand[sel] - lo).to(dev))
+            P, sel_t, cols_t = bitmap[dev]
+            for r0 in range(0, fwd.shape[0], B):
+                r1 = min(r0 + B, fwd.shape[0])
+                m, sc = score_block(P, fwd[r0:r1], rev[r0:r1], n_valid)
+                torch.maximum(ms_s[r0:r1], m, out=ms_s[r0:r1])
+                if len(sel):
+                    snap_s[r0:r1, sel_t] = sc[:, cols_t].to(snap_s.dtype)
 
     def score_all(self, candidate_nodes: list):
         """(max_score int32 [R] on the host, snap [R, len(candidates)] on
-        the device, in candidate order; int16, or int32 past 32,767 seedmer
-        slots)."""
+        the scorer's device, in candidate order; int16, or int32 past
+        32,767 seedmer slots)."""
         R = len(self.reads)
         cand = np.asarray(candidate_nodes, dtype=np.int64)
-        ms = torch.zeros(R, dtype=torch.int32, device=self.device)
-        snap = torch.zeros((R, len(cand)), dtype=self.snap_dtype,
-                           device=self.device)
+        ms = [torch.zeros(fwd.shape[0], dtype=torch.int32, device=dev)
+              for dev, fwd, _ in self._shards]
+        snap = [torch.zeros((fwd.shape[0], len(cand)), dtype=self.snap_dtype,
+                            device=dev) for dev, fwd, _ in self._shards]
         for ci in range(self.n_chunks):
             self.score_chunk(ci, ms, snap, cand)
-        return ms.cpu().numpy(), snap
+        if self.mesh is None:
+            return ms[0].cpu().numpy(), snap[0]
+        return (torch.cat([m.cpu() for m in ms])[:R].numpy(),
+                torch.cat([s.to(self.device) for s in snap])[:R])
 
     def assignment_pass(self, keep: np.ndarray, eff: np.ndarray,
                         amb_thr: int = 0, amb_ratio: float = 0.0):
@@ -241,6 +267,9 @@ class TorchMetaScorer:
         masks are taken in the scores' own type (uint8 below 256 seedmer
         slots): eff - threshold clamped at 0 selects the same nodes, since
         scores are >= 0."""
+        if self.mesh is not None:
+            raise ValueError("assignment_pass runs on one device (the "
+                             "filter-and-assign path takes no mesh)")
         R = len(self.reads)
         C, B, dev = self.NODE_CHUNK, self.READ_CHUNK, self.device
         eff = np.asarray(eff).astype(np.int32)

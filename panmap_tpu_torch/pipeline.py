@@ -1,4 +1,4 @@
-"""Single-sample pipeline on one GPU: index -> place -> align ->
+"""Single-sample pipeline on the GPU: index -> place -> align ->
 genotype -> consensus, and its batch mode over a manifest of samples
 (counterpart of panmap_tpu/pipeline.py).
 
@@ -23,12 +23,17 @@ stages that touch the device are the port's:
    under auto on a CUDA device;
  - run_batch: one TorchPlacer for the run, placement pipelined across the
    samples on the device, the host stages of each sample in a pre-forked
-   pool of workers that never touch the device.
+   pool of workers that never touch the device; in a process group each
+   rank takes its contiguous shard of the manifest;
+ - --mesh (_resolve_mesh): the placer's index rows shard over the run's
+   cards, or over every rank's card in a process group (parallel/);
+ - --profile: the run inside torch.profiler, its trace written to the
+   directory.
 
-Not carried, since they served only a remote TPU link or a device mesh: the
-backend warm-up, the watchdog, the one-shot remote policy, the cold-dispatch
-race, the mesh branch, the multi-host index wait and batch mode's
-multi-process manifest shard.
+Not carried, since they served only a remote TPU link: the backend warm-up,
+the watchdog, the one-shot remote policy and the cold-dispatch race.  Nor
+the JAX package's process-wide placer cache: batch mode holds one placer
+for its run, and a single-sample run uploads its index once anyway.
 """
 
 from __future__ import annotations
@@ -116,7 +121,7 @@ class PipelineConfig:
     # (auto = local accelerator only; see genotype.caller.resolve_device_pileup)
     export_ref_idx: str = ""  # write the index in the reference .idx format
     batch_file: str = ""
-    profile_dir: str = ""  # jax.profiler trace output dir (--profile)
+    profile_dir: str = ""  # torch.profiler trace output dir (--profile)
     dump_all_scores: str = ""
     dump_seed_freq: bool = False  # write <out>.seed_freq.tsv (placement.cpp:1804)
     verify_scores: bool = False  # device vs f64-host-engine cross-check
@@ -195,6 +200,23 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
 
     if _npz_cache_usable(cfg, path):
         return load_index(path), tree
+    # a process group: only rank 0 builds the shared cache (save_index
+    # publishes it with an atomic rename); the others poll for it and build
+    # it themselves only on timeout (the same content, replaced atomically)
+    from .parallel.dist import process_rank_safe
+
+    pid, nproc = process_rank_safe()
+    if nproc > 1 and pid != 0 and not cfg.reindex:
+        wait_s = float(os.environ.get("PANMAP_TPU_INDEX_WAIT_S", "900"))
+        cfg.log(f"[index] process {pid}: waiting for process 0 to build "
+                f"{path} (up to {wait_s:.0f}s)")
+        deadline = time.time() + wait_s
+        while time.time() < deadline:
+            if _npz_cache_usable(cfg, path):
+                return load_index(path), tree
+            time.sleep(2.0)
+        cfg.log(f"[index] process {pid}: cache did not appear; building "
+                f"locally")
     if tree is None:
         tree = load_panman(cfg.panman)
     t0 = time.time()
@@ -221,14 +243,41 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
     return idx, tree
 
 
-def check_supported(cfg: PipelineConfig):
-    """Raise NotImplementedError for options whose device path this port
-    does not have yet (each names its ROADMAP item)."""
-    if cfg.mesh > 1:
-        raise NotImplementedError("--mesh > 1 is not ported yet (ROADMAP B7)")
-    if cfg.profile_dir:
-        raise NotImplementedError("--profile writes a jax.profiler trace; "
-                                  "not ported")
+def _resolve_mesh(cfg: PipelineConfig):
+    """--mesh semantics: 0 = auto (shard over every card of the run when
+    there is more than one), 1 = one device, N > 1 = N shards (a request
+    above the cards is logged and capped).  Returns a parallel.mesh.Mesh or
+    None.
+
+    The manifest-sharded batch mode (a process group, other samples on each
+    rank) pins the mesh to this process's cards: a mesh reduced over the
+    ranks would add up partial sums of different samples.  A single sample
+    in a process group keeps the global mesh (every rank runs the same
+    sample, the rows shard over the ranks)."""
+    from .parallel.mesh import global_device_count, make_mesh
+
+    local_only = bool(cfg.local_mesh_only)
+    n_avail = global_device_count(local_only)
+    want = cfg.mesh if cfg.mesh > 0 else (n_avail if n_avail > 1 else 1)
+    if want <= 1:
+        return None
+    if want > n_avail:
+        cfg.log(f"[mesh] {want} devices requested, {n_avail} available; "
+                f"using {n_avail}")
+        want = n_avail
+    return make_mesh(want, local=local_only)
+
+
+def _get_placer(idx: IndexArrays, cfg: PipelineConfig, device):
+    """A TorchPlacer of ``idx`` (one index upload) on ``device``, or on the
+    mesh --mesh resolves to, whose first card it then is.  CPU tensors (a
+    caller's choice, as the parity tests make it) get no mesh."""
+    mesh = _resolve_mesh(cfg) if device.type == "cuda" else None
+    if mesh is not None:
+        device = mesh.devices[0]
+        cfg.log(f"[mesh] index rows sharded over {mesh.size} shards "
+                f"({len(mesh.devices)} in this process)")
+    return TorchPlacer(idx, device, mesh=mesh)
 
 
 def read_sketch(cfg: PipelineConfig, idx):
@@ -289,7 +338,7 @@ def place_async(cfg: PipelineConfig, idx, sk, device, placer=None):
     fin0 = None
     if cfg.device_place and not (cfg.dump_all_scores or cfg.refine):
         if placer is None:
-            placer = TorchPlacer(idx, device)
+            placer = _get_placer(idx, cfg, device)
         fin0 = placer.place_exact_async(sk, force_leaf=cfg.force_leaf)
     return lambda: _place_finish(cfg, idx, sk, fin0)
 
@@ -967,6 +1016,20 @@ def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
     if not samples:
         cfg.log("[batch] no samples in batch file")
         return 1
+    # a process group: each rank takes its contiguous shard of the manifest
+    # (the host stages stay data-parallel per rank, as the reference's batch
+    # mode is per node)
+    from .parallel.dist import process_read_shard
+
+    shard = process_read_shard(len(samples))
+    if shard != slice(0, len(samples)):
+        cfg.log(f"[batch] process shard: samples "
+                f"[{shard.start}, {shard.stop}) of {len(samples)}")
+        samples = samples[shard]
+        if not samples:
+            return 0
+        # each rank now owns other samples: any mesh stays in the process
+        cfg.local_mesh_only = True
     cfg.log(f"[batch] {len(samples)} samples")
     native.require_lib()  # a failed build raises here, not a silent slow path
     if idx is None:
@@ -1008,7 +1071,7 @@ def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
         device = as_device(device)
         placer = None
         if cfg.device_place and not (cfg.dump_all_scores or cfg.refine):
-            placer = TorchPlacer(idx, device)  # the run's one index upload
+            placer = _get_placer(idx, cfg, device)  # the run's one upload
         return _run_batch_samples(cfg, samples, idx, tree, device, placer,
                                   pool, need_tree)
     finally:
@@ -1104,9 +1167,29 @@ def _run_batch_samples(cfg, samples, idx, tree, device, placer, pool,
 
 def run_pipeline(cfg: PipelineConfig, device=None):
     """Run the single-sample pipeline, or batch mode with cfg.batch_file;
-    ``device`` defaults to the first CUDA device (a CPU device is for the
-    parity tests)."""
-    check_supported(cfg)
+    ``device`` defaults to the run's CUDA card (a CPU device is for the
+    parity tests).  With cfg.profile_dir the run is traced by
+    torch.profiler (host ops, and the card's kernels on a CUDA host) and
+    the trace written into that directory (TensorBoard's trace format)."""
+    if not cfg.profile_dir:
+        return _run_pipeline_inner(cfg, device)
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        with profile(activities=acts, acc_events=True,
+                     on_trace_ready=tensorboard_trace_handler(
+                         cfg.profile_dir)):
+            return _run_pipeline_inner(cfg, device)
+    finally:
+        cfg.log(f"[profile] trace written to {cfg.profile_dir}")
+
+
+def _run_pipeline_inner(cfg: PipelineConfig, device=None):
     if cfg.batch_file:
         return run_batch(cfg, device)
     device = as_device(device)

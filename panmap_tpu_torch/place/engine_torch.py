@@ -6,6 +6,11 @@ row<->read join is an integer gather on the device.  The per-node reduction
 structures (BlockSegments for the full row stream, CscIndex for the sparse
 found-rows path) and the Euler tour of the DFS-preorder tree are built on
 the host and uploaded once.
+
+Under a mesh (parallel/mesh.py) the rows are padded to a multiple of the
+mesh's size with inert rows and split into equal shards; this process
+uploads its own shards, one to each of its mesh devices, and builds
+neither reduction structure (the mesh path sums each shard per node).
 """
 
 from __future__ import annotations
@@ -25,20 +30,23 @@ class DeviceIndex:
     """Host-prepared, device-resident index tensors."""
 
     unique_hashes: np.ndarray  # u64[U] sorted (host only, for query mapping)
-    row_id: torch.Tensor  # i64[T] index into unique_hashes
-    row_parent: torch.Tensor  # i16[T] parent seed counts
-    row_child: torch.Tensor  # i16[T] child seed counts
+    row_id: torch.Tensor | None  # i64[T] index into unique_hashes
+    row_parent: torch.Tensor | None  # i16[T] parent seed counts
+    row_child: torch.Tensor | None  # i16[T] child seed counts
     euler_in: torch.Tensor  # i64[N]
     euler_out: torch.Tensor  # i64[N]
     n_nodes: int
     root_rows: tuple  # (start, end) row range of the root node
-    blk: metrics.BlockSegments  # static blocked per-node reduction
-    csc: metrics.CscIndex  # rows grouped by unique hash (sparse path)
+    blk: metrics.BlockSegments | None  # static blocked per-node reduction
+    csc: metrics.CscIndex | None  # rows grouped by unique hash (sparse path)
     # host copies of the root node's row ids / child counts (the f64
     # weighted-containment denominator of the sparse path)
     root_rid_np: np.ndarray
     root_child_np: np.ndarray
     device: torch.device
+    # under a mesh: this process's (row_id, row_parent, row_child, row_node)
+    # per mesh device; the four whole-row fields above are then None
+    shards: list | None = None
 
 
 def euler_tour(parent_index: np.ndarray):
@@ -64,9 +72,12 @@ def euler_tour(parent_index: np.ndarray):
     return euler_in, euler_out
 
 
-def prepare_device_index(idx: IndexArrays, device) -> DeviceIndex:
-    """Host -> device index preparation on one device (``device`` may be the
-    CPU for the parity tests)."""
+def prepare_device_index(idx: IndexArrays, device, mesh=None) -> DeviceIndex:
+    """Host -> device index preparation on ``device`` (may be the CPU for
+    the parity tests).  With ``mesh``: the row tensors padded to a multiple
+    of mesh.size with inert rows (P == C == 0: every delta is 0; row_node
+    n_nodes - 1, so it stays sorted) and split into mesh.size shards, this
+    process's on its mesh devices; the tree tensors on ``device``."""
     device = torch.device(device)
     uniq, row_id = unique_inverse(idx.seed_hashes)
     n_nodes = len(idx.node_offsets) - 1
@@ -81,20 +92,38 @@ def prepare_device_index(idx: IndexArrays, device) -> DeviceIndex:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
                                                               dtype=dt)
 
+    rp = idx.parent_counts.astype(np.int16)
+    rc = idx.child_counts.astype(np.int16)
+    if mesh is None:
+        rows = dict(
+            # counts stay i16 (their storage dtype); scorers cast to f32,
+            # exact
+            row_id=put(rid, torch.int64), row_parent=put(rp, torch.int16),
+            row_child=put(rc, torch.int16),
+            blk=metrics.block_segments(row_node, n_nodes, device),
+            csc=metrics.csc_index(rid, idx.parent_counts, idx.child_counts,
+                                  row_node, len(uniq), n_nodes, parent,
+                                  device))
+    else:
+        from ..parallel.mesh import pad_rows, split_rows
+
+        n = mesh.size
+        rows = dict.fromkeys(("row_id", "row_parent", "row_child", "blk",
+                              "csc"))
+        rows["shards"] = split_rows(
+            mesh, torch.from_numpy(pad_rows(rid, n).astype(np.int64)),
+            torch.from_numpy(pad_rows(rp, n)),
+            torch.from_numpy(pad_rows(rc, n)),
+            torch.from_numpy(pad_rows(row_node, n, n_nodes - 1)
+                             .astype(np.int64)))
     return DeviceIndex(
         unique_hashes=uniq,
-        row_id=put(rid, torch.int64),
-        # counts stay i16 (their storage dtype); scorers cast to f32, exact
-        row_parent=put(idx.parent_counts.astype(np.int16), torch.int16),
-        row_child=put(idx.child_counts.astype(np.int16), torch.int16),
         euler_in=put(euler_in, torch.int64),
         euler_out=put(euler_out, torch.int64),
         n_nodes=n_nodes,
         root_rows=(a, b),
-        blk=metrics.block_segments(row_node, n_nodes, device),
-        csc=metrics.csc_index(rid, idx.parent_counts, idx.child_counts,
-                              row_node, len(uniq), n_nodes, parent, device),
         root_rid_np=rid[a:b].copy(),
         root_child_np=idx.child_counts[a:b].astype(np.float64),
         device=device,
+        **rows,
     )

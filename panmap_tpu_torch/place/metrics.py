@@ -347,6 +347,19 @@ def sparse_prefix_acc(q_uids, q_logc, csc: CscIndex, euler_in, euler_out,
     return torch.cat([csc.mag_prefix[:, None], acc5], dim=1)
 
 
+def row_node_sums(lrc, P, C, found, row_node, n_nodes: int):
+    """Per-node sums of the row deltas [N,6] as one segment sum over the
+    node-sorted rows (twin of metrics.row_node_sums): the reduction of the
+    mesh path, which has no blocked structure per shard.  P and C may come
+    as i16 (their upload dtype) and are cast to the compute dtype here."""
+    P = P.to(lrc.dtype)
+    C = C.to(lrc.dtype)
+    deltas = torch.stack(row_metric_deltas_torch(lrc, P, C, found), dim=1)
+    out = torch.zeros((n_nodes, deltas.shape[1]), dtype=lrc.dtype,
+                      device=lrc.device)
+    return out.index_add_(0, row_node, deltas)
+
+
 def row_node_sums_blocked(lrc, P, C, found, blk: BlockSegments,
                           n_nodes: int):
     """Per-node sums of the row deltas [N,6] without a row-count-sized

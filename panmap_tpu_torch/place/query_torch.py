@@ -13,8 +13,13 @@ Carried over unchanged from the JAX package: the selection rule
 (tol = max(best*1e-4, 1e-9), cutoff best - (2*tol + 1e-5)), WITNESS_J,
 GUARD_FACTOR and every guard of the host rescue.  Left out: the candidate
 bit-packing (it shrank the fetch over a remote link; here the [N,5] mask
-comes back as bools), the cuckoo table and device sketch, batch scoring and
-the mesh branch.
+comes back as bools), the cuckoo table and device sketch, and batch
+scoring.
+
+Under a mesh (--mesh; parallel/mesh.py) there is no sparse program, as in
+the JAX package (its CscIndex is None there): every query runs the full row
+stream, each shard summing its own rows per node, the partials reduced over
+the mesh (parallel.mesh.sharded_score), then the same selection and rescue.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..index.builder import IndexArrays
 from . import metrics as tm
 from .engine import METRICS, PlacementScores, rescore_paths
+from ..parallel.mesh import sharded_score
 from .engine_torch import prepare_device_index
 
 
@@ -53,13 +59,19 @@ class TorchPlacer:
     WITNESS_J = 16
     GUARD_FACTOR = 8.0
 
-    def __init__(self, idx: IndexArrays, device, dev=None):
+    def __init__(self, idx: IndexArrays, device, dev=None, mesh=None):
         """``dev``: an already prepared DeviceIndex (e.g. from
-        convert.device_index); built from ``idx`` otherwise."""
+        convert.device_index); built from ``idx`` otherwise.  ``mesh``: a
+        parallel.mesh.Mesh whose first device is ``device``; the index rows
+        shard over it (twin of TpuPlacer(mesh=...))."""
         self.idx = idx
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.devices[0] != self.device:
+            raise ValueError(f"the mesh's partials reduce on "
+                             f"{mesh.devices[0]}, not on {self.device}")
         self.dev = dev if dev is not None else prepare_device_index(
-            idx, self.device)
+            idx, self.device, mesh)
         self._elig = None
 
     def _ensure_elig(self):
@@ -93,10 +105,13 @@ class TorchPlacer:
                                wc_den=None):
         """Enqueue the sparse found-rows program (metrics.sparse_prefix_acc
         + finalize + widened selection) and return its (cand, best, col)
-        device tensors, or None when the query touches more than RCAP_MAX
-        rows (the caller then runs the full row stream).  Shapes are the
-        query's own: eager torch has no compile cache to bucket for."""
+        device tensors, or None under a mesh or when the query touches more
+        than RCAP_MAX rows (the caller then runs the full row stream).
+        Shapes are the query's own: eager torch has no compile cache to
+        bucket for."""
         csc = self.dev.csc
+        if csc is None:
+            return None
         F = tm.query_found_rows(csc, uids)
         if F > self.RCAP_MAX:
             return None
@@ -122,8 +137,26 @@ class TorchPlacer:
         """The full-row-stream fallback (twin of query_tpu.py:758-787 over
         _score_rows): every index row gathers its read log-count from a
         dense per-uid table, the blocked per-node reduction and the Euler
-        prefix follow, and wc_den comes from the root rows in f32."""
+        prefix follow, and wc_den comes from the root rows in f32.  Under a
+        mesh the rows are the shards' (parallel.mesh.sharded_score) and the
+        root rows' found flags come from the host copy of their ids, as the
+        shards may put the root node anywhere."""
         d = self.dev
+        if d.shards is not None:
+            ids = torch.from_numpy(np.asarray(uids, np.int64)).to(self.device)
+            acc = sharded_score(self.mesh, d.shards, d.euler_in, d.euler_out,
+                                ids, torch.from_numpy(np.asarray(
+                                    logc, np.float32)).to(self.device),
+                                d.n_nodes)
+            found = torch.from_numpy(np.isin(d.root_rid_np, uids)).to(
+                self.device)
+            wc_den = tm.wc_denominator_torch(
+                acc[:0, 0], torch.from_numpy(d.root_child_np).to(self.device),
+                found)
+            scores = tm.finalize_scores_torch(
+                acc, np.float32(log_mag), np.int32(nuniq), np.float32(lden),
+                wc_den)
+            return widened_candidates(scores, elig)
         uid_logc = torch.zeros(len(d.unique_hashes), dtype=torch.float32,
                                device=self.device)
         uid_logc[torch.from_numpy(np.asarray(uids, np.int64)).to(

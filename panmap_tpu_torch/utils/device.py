@@ -25,9 +25,12 @@ def cuda_device(index: int = 0) -> torch.device:
 
 
 def as_device(device) -> torch.device:
-    """Normalize a device argument; None means the main path's CUDA device."""
+    """Normalize a device argument; None means the main path's CUDA device
+    (in a process group the rank's card, parallel/dist.py)."""
     if device is None:
-        return cuda_device()
+        from ..parallel.dist import rank_card_index
+
+        return cuda_device(rank_card_index())
     device = torch.device(device)
     if device.type == "cuda":
         return cuda_device(device.index or 0)

@@ -103,29 +103,63 @@ def test_slice_outputs_byte_equal_to_jax_package(tmp_path, monkeypatch, seed):
 
 
 @pytest.mark.parametrize("argv", [
+    ["--meta", "--filter-and-assign"], ["--batch", "manifest.txt"],
+    ["--device-pileup", "on"], ["--meta", "--batch", "manifest.txt"],
     ["--mesh", "2"], ["--dist-nprocs", "2"], ["--meta", "--mesh", "2"],
     ["--profile", "trace_dir"]])
-def test_cli_refuses_unported_options(tmp_path, argv):
-    with pytest.raises(NotImplementedError):
-        torch_main([str(tmp_path / "x.panman"), "r1.fq", *argv])
-
-
-@pytest.mark.parametrize("argv", [
-    ["--meta", "--filter-and-assign"], ["--batch", "manifest.txt"],
-    ["--device-pileup", "on"], ["--meta", "--batch", "manifest.txt"]])
 def test_cli_takes_the_ported_modes(tmp_path, monkeypatch, argv):
-    """The four modes ported last get past the refusals: with no card and
-    an empty PanMAN they fail for the card or the file (or, for a manifest
-    that is not there, return 1), not with NotImplementedError."""
+    """Every mode of the JAX package's CLI gets past argument handling:
+    with no card and an empty PanMAN they fail for the card or the file
+    (or, for a manifest that is not there, return 1), not with
+    NotImplementedError.  (--dist-nprocs without the other two flags runs
+    one process, as the JAX package's CLI does.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)  # --profile writes its trace here
     panman = tmp_path / "x.panman"
     panman.write_bytes(b"")
     if "--batch" in argv:
         assert torch_main([str(panman), *argv, "-q"]) == 1
     else:
         with pytest.raises((RuntimeError, EOFError)) as exc:
-            torch_main([str(panman), "r1.fq", *argv])
+            torch_main([str(panman), "r1.fq", *argv, "-q"])
         assert not isinstance(exc.value, NotImplementedError)
+
+
+def test_profile_writes_a_trace_and_leaves_the_outputs(tmp_path,
+                                                       monkeypatch):
+    """run_pipeline with profile_dir on CPU tensors: a torch.profiler trace
+    of the run's ops in the directory, and the five outputs byte-equal to
+    the same run without it."""
+    from panmap_tpu_torch.io.index_io import save_index
+
+    w = _small(tmp_path, 0)
+    panman = tmp_path / "x.panman"
+    panman.write_bytes(b"")
+    os.utime(panman, (0, 0))  # older than the saved index: it is loaded
+    idx_path = str(tmp_path / "x.ptidx.npz")
+    save_index(idx_path, w.idx)
+    monkeypatch.setattr(tp, "load_panman", lambda path: w.tree)
+    lines = []
+    outs = []
+    for name, prof in (("plain", ""), ("profiled", str(tmp_path / "trace"))):
+        os.makedirs(tmp_path / name)
+        cfg = tp.PipelineConfig(panman=str(panman), reads1=w.reads1,
+                                reads2=w.reads2, index_path=idx_path,
+                                output=str(tmp_path / name / "sample"),
+                                profile_dir=prof,
+                                log=lambda m, *a, **k: lines.append(m))
+        tp.run_pipeline(cfg, device=torch.device("cpu"))
+        outs.append(cfg.output)
+    for ext in OUTPUTS:
+        assert filecmp.cmp(f"{outs[0]}.{ext}", f"{outs[1]}.{ext}",
+                           shallow=False), ext
+    traces = os.listdir(tmp_path / "trace")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    with open(tmp_path / "trace" / traces[0]) as fh:
+        trace = fh.read()
+    assert '"traceEvents"' in trace and "aten::" in trace
+    assert lines.count(f"[profile] trace written to {tmp_path / 'trace'}") \
+        == 1
 
 
 def test_cli_needs_a_cuda_device(tmp_path, monkeypatch):

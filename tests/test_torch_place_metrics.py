@@ -138,6 +138,25 @@ def test_blocked_sums_match_jax_and_oracle(seed, L):
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_row_node_sums_match_jax_and_oracle(seed):
+    """The mesh path's segment sum (i16 counts, as uploaded)."""
+    rng = np.random.default_rng(seed)
+    T, N, NU = 1000, 37, 400
+    row_node, row_id, P, C, uid_logc = _random_case(rng, T, N, NU)
+    oracle = _oracle_f64(row_node, row_id, P, C, uid_logc, N)
+    lrc = uid_logc[row_id]
+    P16, C16 = P.astype(np.int16), C.astype(np.int16)
+    got = tm.row_node_sums(_t(lrc), _t(P16), _t(C16), _t(lrc > 0),
+                           _t(row_node).long(), N).numpy()
+    ref = np.asarray(jm.row_node_sums(
+        jnp.asarray(lrc), jnp.asarray(P16), jnp.asarray(C16),
+        jnp.asarray(lrc > 0), jnp.asarray(row_node), N))
+    assert got.dtype == np.float32 and got.shape == (N, 6)
+    np.testing.assert_allclose(got, oracle, atol=1e-4)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
 def test_blocked_handles_trailing_empty_nodes():
     row_node = np.array([0, 0, 2, 2, 2], np.int32)  # nodes 1,3,4 of 5 empty
     N = 5

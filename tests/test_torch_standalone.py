@@ -279,8 +279,8 @@ DIFFERS = {
     },
     "place/metrics.py": {
         name: "the torch twin of the jax.numpy body, under its name"
-        for name in ("euler_prefix", "expand_query", "row_node_sums_blocked",
-                     "sparse_prefix_acc")},
+        for name in ("euler_prefix", "expand_query", "row_node_sums",
+                     "row_node_sums_blocked", "sparse_prefix_acc")},
     "align/batch.py": {
         "TorchBatchAligner._resolve_pallas_mode":
             "the device type (or None without a device), not the Pallas "
@@ -318,28 +318,38 @@ DIFFERS = {
     },
     "meta/driver.py": {
         "run_meta": "the port's own driver (torch scorer and EM, staged)",
+        "_resolve_meta_mesh": "counts the run's CUDA cards and builds a "
+                              "parallel.mesh.Mesh, not a jax Mesh",
     },
     "pipeline.py": {
-        "ensure_index": "no multi-host wait (parallel/ is not carried)",
+        "PipelineConfig": "profile_dir's comment names torch.profiler",
+        "ensure_index": "the ranks' wait for rank 0's index reads the "
+                        "port's process group; no _cache_usable closure",
+        "_resolve_mesh": "counts the run's CUDA cards and builds a "
+                         "parallel.mesh.Mesh, not a jax Mesh",
+        "_get_placer": "a TorchPlacer on the device or its mesh; no "
+                       "process-wide cache (batch mode holds one placer)",
         "run_placement": "TorchPlacer instead of the jax placer, no race "
                          "with a remote link",
         "run_alignment": "takes the device; TorchBatchAligner and "
                          "TorchLongReadAligner run the device stages; a "
                          "missing native library raises",
-        "run_pipeline": "the port's stage runner (no remote-link policy, "
-                        "no mesh)",
+        "run_pipeline": "takes the device; --profile is torch.profiler's "
+                        "trace",
+        "_run_pipeline_inner": "the port's stage runner (no remote-link "
+                               "policy, no backend warm-up)",
         "run_genotyping": "takes the device and passes it to the tally",
         "_batch_host_stages": "passes no device down (host DP, host tally) "
                               "instead of setting PANMAP_PALLAS=0",
         "run_batch": "one TorchPlacer for the run, the device and an "
-                     "in-memory index / tree as arguments, no multi-process "
-                     "manifest shard, no backend warm-up; its loop is "
-                     "_run_batch_samples",
+                     "in-memory index / tree as arguments, no backend "
+                     "warm-up; its loop is _run_batch_samples",
     },
     "__main__.py": {
-        "main": "the port's entry: refuses unported options, builds "
-                "PipelineConfig / MetaConfig (the --meta --batch loop "
-                "included), runs on the CUDA device",
+        "main": "the port's entry: joins a torch.distributed group "
+                "for --dist-* and leaves it at the end (_main parses, "
+                "builds PipelineConfig / MetaConfig with the --meta "
+                "--batch loop, and runs on the CUDA device)",
     },
 }
 
@@ -354,7 +364,7 @@ CARRIED = {
     "io/fastq.py": 11, "io/index_io.py": 3, "io/panman.py": 17,
     "io/refidx.py": 14, "meta/assign.py": 7, "meta/driver.py": 2, "meta/engine.py": 39,
     "meta/events.py": 4, "meta/index.py": 7, "meta/rdg.py": 1,
-    "native/__init__.py": 27, "pipeline.py": 10, "place/engine.py": 12,
+    "native/__init__.py": 27, "pipeline.py": 9, "place/engine.py": 12,
     "place/metrics.py": 6, "place/refine.py": 4, "simulate.py": 7,
     "sketch/cpu.py": 14, "tools.py": 6, "utils/fastnp.py": 1, "ux.py": 16,
 }
