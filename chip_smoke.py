@@ -11,7 +11,9 @@ abundances to the demo's own gates; then read assignment (--meta
 --filter-and-assign) at the shape of the reference's demo 3, batch mode
 over a manifest of 8 samples, the pileup tally on the card, and the
 sharded paths (--mesh, --dist-*) and --profile, and the placement API
-beside the CLI's path with the device read sketch.
+beside the CLI's path with the device read sketch; and last the CLI
+itself from a PanMAN file written from the seed (short and long reads,
+--meta, --dump-node, --simulate).
 
     python3 chip_smoke.py [--seed N] [--out DIR]
     python3 chip_smoke.py --walls N   # only phase 5's stage walls, N runs
@@ -139,6 +141,27 @@ Phases, one line each with its time:
      unsharded scan.  Dispatch-to-sync walls of place, place_best,
      place_best_host, one batched call of 8 samples and 8 single calls;
      peak device memory; neither kernel launches on this path
+ 17. (runs before 14) the CLI from a PanMAN file, in this process on
+     cuda:0 with no stand-in for load_panman (panmap_tpu_torch.__main__.
+     main; load_panman's scalar decoder patched to raise, the vectorised
+     one counted): a file of make_panman_model's tree written from --seed
+     (written twice: the same bytes) and a short sample from a mutated
+     copy of a leaf; (a) cold: the index built from the file and cached
+     beside it, B1 launched by the CLI (launch count reset just before)
+     and each launch bit-equal to its plain version, a variant called;
+     (b) warm, on the cached index: B1's launches bit-equal to its plain
+     version as in (a), the five outputs byte-equal to (a)'s,
+     the wall split load + place / tree wait / align / genotype+BAM /
+     consensus; (c) the stages on CPU tensors with the decoded tree, the
+     five outputs byte-equal to (b)'s, place_exact on both device routes
+     == TorchPlacer on CPU tensors == the f64 host engine; (d) the placed
+     node's genome == the source leaf's; (e) 1,000 long reads (map-ont) of
+     another leaf through the CLI: B2 launched, each launch bit-equal to
+     its plain version, placed on that leaf's genome; (f) --meta on
+     200,000 read pairs of five leaves at 0.40 / 0.25 / 0.15 / 0.12 / 0.08:
+     the meta index built from the file and cached, demo 2's gate A;
+     (g) --dump-node of the placed node == (b)'s ref.fa, --simulate at its
+     defaults
  14. neither jax nor any module of panmap_tpu was imported; the count of
      the port's modules that were
 
@@ -152,10 +175,13 @@ pairs of 150 bp for the short-read path; 5,000 single-end ONT-like reads of
 29,903 bp genome at 0.40 / 0.25 / 0.15 / 0.12 / 0.08, 200,000 read pairs of
 150 bp and a 39,999-node meta index; for read assignment 400 species of
 25 nodes with a 16.5 kb genome each (10,191 nodes) and 250,000 single-end
-ancient-DNA-like reads of 35-120 bp.  The last lines are a JSON line of the
-meta readings, one of the assign, batch and tally readings, one of phase
-15's (mesh), one of phase 16's (api), a JSON line listing the kernels
-and the result line;
+ancient-DNA-like reads of 35-120 bp; for phase 17 a PanMAN file of a
+39,999-node tree (~20,000 leaves) over a 29,903 bp genome in 30 blocks.
+The last lines are the card's name and power limit again, a JSON line
+of the meta readings, one of the assign,
+batch and tally readings, one of phase 15's (mesh), one of phase 16's
+(api), one of phase 17's (panman), a JSON line listing the kernels and the
+result line;
 any failure raises (exit code != 0) and prints no result.  Needs one CUDA
 card; exits non-zero without one.
 """
@@ -1982,6 +2008,353 @@ def place_api_phase(placer, w, sk, seqs, samples, dev):
     return report, readings
 
 
+@contextlib.contextmanager
+def wrapped(obj, name, make):
+    """``obj.name`` replaced by ``make(original)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def marking(marks, key):
+    """A wrapper maker: each call of the wrapped function records its
+    start and end (perf_counter) under ``key`` in ``marks``."""
+    def make(fn):
+        def run(*a, **k):
+            marks[key + "0"] = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                marks[key + "1"] = time.perf_counter()
+                marks[key + "_n"] = marks.get(key + "_n", 0) + 1
+        return run
+    return make
+
+
+def capturing(calls):
+    """A wrapper maker: each call's (arguments, result) appended to
+    ``calls``."""
+    def make(fn):
+        def run(*args):
+            res = fn(*args)
+            calls.append((args, res))
+            return res
+        return run
+    return make
+
+
+def stage_split(m):
+    """A CLI run's wall by stage from ``marking``'s marks."""
+    return {"load+place": m["place1"] - m["main0"],
+            "tree wait": m["align0"] - m["place1"],
+            "align": m["align1"] - m["align0"],
+            "genotype+bam": m["consensus0"] - m["align1"],
+            "consensus": m["consensus1"] - m["consensus0"]}
+
+
+def vcf_records(path):
+    with open(path) as fh:
+        return [ln for ln in fh if not ln.startswith("#")]
+
+
+def fasta_seq(path):
+    """(name, sequence) of a one-record FASTA file."""
+    with open(path) as fh:
+        head = fh.readline()[1:].strip()
+        return head, "".join(ln.strip() for ln in fh)
+
+
+def panman_phase(args, tp, sw, long_dp, td, TorchPlacer, dev, cpu,
+                 n_nodes=39999, n_pairs=51169, long_reads=1000,
+                 meta_pairs=200000):
+    """Phase 17 (see the module docstring): the CLI in this process on a
+    PanMAN file written from --seed, with no stand-in for load_panman.
+    Returns (report lines, readings, B1's launches on the cold run, B2's
+    on the long-read run)."""
+    import torch
+    from types import SimpleNamespace
+
+    from panmap_tpu_torch.__main__ import main as cli
+    from panmap_tpu_torch.io import panman as pio
+    from panmap_tpu_torch.io.index_io import load_index
+    from panmap_tpu_torch.meta.index import load_meta_index
+    from panmap_tpu_torch.synthetic import (make_panman_long_workload,
+                                            make_panman_meta_workload,
+                                            make_panman_workload,
+                                            write_panman)
+
+    out = os.path.join(args.out, "panman")
+    lines, rd = [], {}
+    t0 = time.perf_counter()
+    w = make_panman_workload(os.path.join(out, "reads"), seed=args.seed,
+                             n_nodes=n_nodes, n_pairs=n_pairs)
+    rd["workload_s"] = time.perf_counter() - t0
+    # the writer alone, and deterministic: a second write, the same bytes
+    t1 = time.perf_counter()
+    write_panman(w.panman + ".again", w.model)
+    rd["write_s"] = time.perf_counter() - t1
+    if not filecmp.cmp(w.panman, w.panman + ".again", shallow=False):
+        raise AssertionError("two writes of one tree differ")
+    os.remove(w.panman + ".again")
+    rd["panman_bytes"] = os.path.getsize(w.panman)
+    rd["tree"] = dict(nodes=len(w.model.names), blocks=len(w.model.blocks),
+                      gap_runs=len(w.model.gaps),
+                      nuc_records=len(w.model.nuc_muts),
+                      leaves=len(w.model.leaves()))
+    lines.append(
+        f"[17a] workload: a PanMAN file of {len(w.model.names)} nodes "
+        f"({rd['tree']['leaves']} leaves), {len(w.model.blocks)} blocks, "
+        f"{len(w.model.nuc_muts)} nucleotide records, "
+        f"{rd['panman_bytes']} B xz (write {rd['write_s']:.2f}s), "
+        f"{w.n_reads} reads from a mutated copy of {w.leaf}; "
+        f"{rd['workload_s']:.1f}s")
+
+    decodes, marks = {}, {}
+
+    def no_scalar(fn):
+        def refuse(*a, **k):
+            raise AssertionError("the scalar PanMAN decoder ran")
+        return refuse
+
+    def counting(fn):
+        def run(*a, **k):
+            ok = fn(*a, **k)
+            decodes["fast"] = decodes.get("fast", 0) + bool(ok)
+            return ok
+        return run
+
+    b1, b2 = [], []
+    prefix = {k: os.path.join(out, k, "sample") for k in
+              ("cold", "warm", "cpu", "long", "meta")}
+    for p in prefix.values():
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+
+    def b1_held(run):
+        """B1's captured launches of ``run`` each bit-equal to its plain
+        version; their (B, LQ, LW) shapes."""
+        if not b1:
+            raise AssertionError(f"{run}: B1 was never called")
+        for (q, r, ql), res in b1:
+            if not torch.equal(res, sw.banded_sw_scores_reference(q, r, ql)):
+                raise AssertionError(f"B1 != its plain version on a launch "
+                                     f"of the PanMAN path ({run})")
+        return [tuple(a[0].shape) + (a[1].shape[1],) for a, _ in b1]
+
+    def run_cli(argv):
+        marks.clear()
+        marks["main0"] = time.perf_counter()
+        rc = cli([w.panman, *argv, "-q"])
+        marks["main1"] = time.perf_counter()
+        if rc != 0:
+            raise AssertionError(f"the CLI returned {rc}: {argv}")
+        return dict(marks)
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, make in (
+                (pio, "_decode_mutations_scalar", no_scalar),
+                (pio, "_decode_mutations_fast", counting),
+                (tp, "build_index", marking(marks, "build")),
+                (td, "build_meta_index", marking(marks, "meta_build")),
+                (tp, "run_placement", marking(marks, "place")),
+                (tp, "run_alignment", marking(marks, "align")),
+                (tp, "run_genotyping", marking(marks, "genotype")),
+                (tp, "run_consensus", marking(marks, "consensus")),
+                (sw, "banded_sw_scores", capturing(b1)),
+                (long_dp, "long_dp_rows", capturing(b2))):
+            stack.enter_context(wrapped(obj, name, make))
+
+        # (a) cold: the index is built from the file and cached
+        sw.LAUNCHES = long_dp.LAUNCHES = 0
+        m = run_cli([w.reads1, w.reads2, "-o", prefix["cold"]])
+        launches_a = sw.LAUNCHES
+        cache = w.panman + ".ptidx.npz"
+        if m.get("build_n") != 1 or not os.path.exists(cache):
+            raise AssertionError("the cold run did not build and cache the "
+                                 "index")
+        idx = load_index(cache)
+        rd["index_rows"] = int(len(idx.seed_hashes))
+        rd["index_build_s"] = m["build1"] - m["build0"]
+        rd["cold_s"] = m["main1"] - m["main0"]
+        if launches_a == 0 or long_dp.LAUNCHES:
+            raise AssertionError(f"cold run: B1 launched {launches_a} times, "
+                                 f"B2 {long_dp.LAUNCHES}")
+        shapes = b1_held("the cold run")
+        n_var = len(vcf_records(prefix["cold"] + ".vcf"))
+        if n_var == 0:
+            raise AssertionError("the cold run called no variant")
+        lines.append(
+            f"[17a] cold CLI {rd['cold_s']:.2f}s: index built from the file "
+            f"in {rd['index_build_s']:.2f}s ({rd['index_rows']} rows, "
+            f"{len(idx.node_ids)} nodes) and cached; B1 launched "
+            f"{launches_a} time(s) {shapes}, each bit-equal to its plain "
+            f"version; {n_var} variants")
+
+        # (b) warm: the cached index, the same five outputs
+        b1.clear()
+        sw.LAUNCHES = 0
+        m = run_cli([w.reads1, w.reads2, "-o", prefix["warm"]])
+        launches_b = sw.LAUNCHES
+        if m.get("build_n") or launches_b == 0:
+            raise AssertionError(f"warm run: built {m.get('build_n')}, B1 "
+                                 f"launches {launches_b}")
+        b1_held("the warm run")
+        sizes = same_outputs(prefix["cold"], prefix["warm"], "the cold run")
+        rd["warm_s"] = m["main1"] - m["main0"]
+        rd["warm_split_s"] = stage_split(m)
+        lines.append(
+            f"[17b] warm CLI {rd['warm_s']:.2f}s = "
+            + ", ".join(f"{k} {v:.2f}s" for k, v in
+                        rd["warm_split_s"].items())
+            + f" (the tree decoded on a thread meanwhile); B1 launched "
+            f"{launches_b} time(s), each bit-equal to its plain version; "
+            f"the five outputs byte-equal to the cold "
+            f"run's: " + ", ".join(sizes))
+
+        # (c) the stages on CPU tensors with the loaded tree; placement on
+        # both device routes == TorchPlacer on CPU tensors == f64 engine
+        t1 = time.perf_counter()
+        tree = pio.load_panman(w.panman)
+        rd["panman_load_s"] = time.perf_counter() - t1
+        wl = SimpleNamespace(idx=idx, tree=tree, reads1=w.reads1,
+                             reads2=w.reads2)
+        ccfg = tp.PipelineConfig(panman=w.panman, reads1=w.reads1,
+                                 reads2=w.reads2, output=prefix["cpu"],
+                                 log=lambda *a, **k: None)
+        cbest, *_ = run_stages(tp, wl, ccfg, cpu, {})
+        same_outputs(prefix["warm"], prefix["cpu"], "the CPU-tensor run")
+        pcfg = tp.PipelineConfig(panman=w.panman, reads1=w.reads1,
+                                 reads2=w.reads2, output="",
+                                 log=lambda *a, **k: None)
+        report, _, _ = placement_phase(tp, TorchPlacer, wl, pcfg, dev, cpu)
+        rd["cpu_s"] = time.perf_counter() - t1
+        lines.append(f"[17c] load_panman {rd['panman_load_s']:.2f}s; the "
+                     f"stages on CPU tensors: the five outputs "
+                     f"byte-equal to the warm run's; place_exact == "
+                     f"TorchPlacer on CPU tensors == f64 host engine: "
+                     f"{report}; {rd['cpu_s']:.1f}s")
+
+        # (d) the placed node against the source leaf
+        best = fasta_seq(prefix["warm"] + ".ref.fa")[0]
+        if best != cbest:
+            raise AssertionError(f"CPU run placed {cbest}, the CLI {best}")
+        genome = w.model.get_string(w.leaf)
+        rd["source_leaf"] = w.leaf
+        rd["placed"] = best
+        rd["placed_is_leaf"] = best == w.leaf
+        if w.model.get_string(best) != genome:
+            raise AssertionError(f"placed on {best}, whose genome is not "
+                                 f"the source leaf {w.leaf}'s")
+        lines.append(f"[17d] placed on {best}: "
+                     + ("the source leaf itself" if best == w.leaf else
+                        f"a node of the source leaf {w.leaf}'s genome"))
+
+        # (e) long reads through the CLI: B2 on the CLI's own launches
+        t1 = time.perf_counter()
+        lw = make_panman_long_workload(w, os.path.join(out, "long_reads"),
+                                       seed=args.seed, n_reads=long_reads)
+        b1.clear()
+        sw.LAUNCHES = long_dp.LAUNCHES = 0
+        m = run_cli([lw.reads1, "-o", prefix["long"]])
+        launches_e = long_dp.LAUNCHES
+        if launches_e == 0 or not b2:
+            raise AssertionError("the long-read CLI never launched B2")
+        long_err = max(same_rows(res, long_dp.long_dp_rows_reference(*a),
+                                 "a launch of the PanMAN path")
+                       for a, res in b2)
+        lbest = fasta_seq(prefix["long"] + ".ref.fa")[0]
+        if w.model.get_string(lbest) != w.model.get_string(lw.leaf):
+            raise AssertionError(f"long reads placed on {lbest}, not on "
+                                 f"the genome of {lw.leaf}")
+        cells = float(sum(int((a[2][:, 0].long() * a[2][:, 2].long()).sum())
+                          for a, _ in b2))
+        rd["long"] = dict(reads=lw.n_reads, cli_s=m["main1"] - m["main0"],
+                          split_s=stage_split(m),
+                          b2_launches=launches_e, b1_launches=sw.LAUNCHES,
+                          cells=cells, placed=lbest, leaf=lw.leaf,
+                          variants=len(vcf_records(prefix["long"] + ".vcf")))
+        lines.append(
+            f"[17e] long reads: {lw.n_reads} reads of {lw.leaf} -> {lbest} "
+            f"(its genome) in {rd['long']['cli_s']:.2f}s = "
+            + ", ".join(f"{k} {v:.2f}s" for k, v in
+                        rd["long"]["split_s"].items())
+            + f"; B2 launched "
+            f"{launches_e} time(s) over {cells / 1e9:.3f} G band cells, "
+            f"each bit-equal to its plain version (max |diff| {long_err}); "
+            f"{rd['long']['variants']} variants; "
+            f"{time.perf_counter() - t1:.1f}s")
+
+        # (f) --meta: the meta index built from the file, gate A
+        t1 = time.perf_counter()
+        mw = make_panman_meta_workload(w, os.path.join(out, "meta_reads"),
+                                       seed=args.seed, n_pairs=meta_pairs)
+        sw.LAUNCHES = long_dp.LAUNCHES = 0
+        m = run_cli([mw.reads1, mw.reads2, "--meta", "--em-delta-threshold",
+                     "0.00001", "-o", prefix["meta"]])
+        mcache = w.panman + ".ptmidx.npz"
+        if m.get("meta_build_n") != 1 or not os.path.exists(mcache):
+            raise AssertionError("the meta index was not built and cached")
+        if sw.LAUNCHES or long_dp.LAUNCHES:
+            raise AssertionError("a kernel launched on the meta path")
+        midx = load_meta_index(mcache)
+        truth = dict(zip(mw.haplotypes, mw.proportions))
+        un, mlines = abundance(prefix["meta"] + ".mgsr.abundance.out")
+        missing = [h for h in truth if h not in un]
+        if missing:
+            raise AssertionError(f"haplotypes not in the output: {missing}")
+        top = max(un, key=un.get)
+        spur = sum(p for names, p in mlines if not set(names) & set(truth))
+        errs = {h: un[h] - truth[h] for h in truth}
+        if (top != max(truth, key=truth.get) or spur > 0.25
+                or max(abs(e) for e in errs.values()) > 0.06):
+            raise AssertionError(f"gate A: top {top}, spurious {spur:.4f}, "
+                                 f"p - truth {errs}")
+        rd["meta"] = dict(pairs=meta_pairs, rows=int(len(midx.delta_seed)),
+                          seeds=int(len(midx.seed_hash)),
+                          build_s=m["meta_build1"] - m["meta_build0"],
+                          cli_s=m["main1"] - m["main0"], top=top,
+                          max_err=max(abs(e) for e in errs.values()),
+                          spurious=spur, props={h: un[h] for h in truth})
+        lines.append(
+            f"[17f] --meta on {2 * meta_pairs} reads of 5 leaves at "
+            f"{mw.proportions}: meta index built from the file in "
+            f"{rd['meta']['build_s']:.2f}s ({rd['meta']['rows']} delta rows, "
+            f"{rd['meta']['seeds']} seeds) and cached; CLI "
+            f"{rd['meta']['cli_s']:.2f}s; gate A: top {top}, |p - truth| <= "
+            f"{rd['meta']['max_err']:.4f}, non-haplotype mass {spur:.4f}; "
+            f"{time.perf_counter() - t1:.1f}s")
+
+        # (g) the tools on the file
+        t1 = time.perf_counter()
+        node_fa = os.path.join(out, "node.fa")
+        run_cli(["--dump-node", best, "-o", node_fa])
+        if fasta_seq(node_fa) != fasta_seq(prefix["warm"] + ".ref.fa"):
+            raise AssertionError("--dump-node != the warm run's ref.fa")
+        sim = os.path.join(out, "sim", "sim")
+        run_cli(["--simulate", "-o", sim])
+        made = sorted(f for f in os.listdir(os.path.dirname(sim)))
+        if made != ["sim.fa", "sim.truth.vcf", "sim_R1.fastq",
+                    "sim_R2.fastq"]:
+            raise AssertionError(f"--simulate wrote {made}")
+        with open(sim + "_R1.fastq") as fh:
+            n_sim = sum(1 for _ in fh) // 4
+        lines.append(f"[17g] --dump-node {best} == the warm run's ref.fa; "
+                     f"--simulate at its defaults: {n_sim} read pairs of a "
+                     f"random leaf; {time.perf_counter() - t1:.1f}s")
+    rd["fast_decodes"] = decodes.get("fast", 0)
+    if rd["fast_decodes"] < 7:
+        raise AssertionError(f"the fast decoder ran {rd['fast_decodes']} "
+                             f"times")
+    rd["b1_launches"] = dict(cold=launches_a, warm=launches_b)
+    rd["phase_s"] = time.perf_counter() - t0
+    lines.append(f"[17] every load took the vectorised decoder "
+                 f"({rd['fast_decodes']} loads, the scalar one never); "
+                 f"{rd['phase_s']:.1f}s")
+    return lines, rd, launches_a, launches_e
+
+
 def walls_phase(args, n_runs):
     """--walls: both builds, the short and the meta workload, then phase
     5's stages and phase 10's run_meta on the card n_runs times each, after
@@ -2300,6 +2673,13 @@ def main(argv=None):
         f"launches on this path: banded_sw {sw.LAUNCHES}, banded_long "
         f"{long_dp.LAUNCHES}; {api['phase_s']:.1f}s")
 
+    # 17. the CLI from a PanMAN file written from --seed; before 14, so
+    # that its check covers it
+    lines, panman, panman_b1, panman_b2 = panman_phase(
+        args, tp, sw, long_dp, td, TorchPlacer, dev, cpu)
+    for line in lines:
+        log(line)
+
     # 14. no jax and nothing of the JAX package anywhere
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "jaxlib", "panmap_tpu")
@@ -2311,10 +2691,12 @@ def main(argv=None):
     log(f"[14] neither jax nor panmap_tpu imported; {n_port} modules of "
         f"panmap_tpu_torch loaded; total {time.perf_counter() - t_all:.1f}s")
 
+    log(smi)  # again, for readers of the output's tail
     log(json.dumps({"meta": meta}))
     log(json.dumps({"assign": assign, "batch": batch, "tally": tally}))
     log(json.dumps({"mesh": mesh_r}))
     log(json.dumps({"api": api}))
+    log(json.dumps({"panman": panman}))
 
     log(json.dumps({"kernels": [{
         "name": "banded_sw",
@@ -2325,6 +2707,8 @@ def main(argv=None):
         "launches_one_sample_batch": batch_launches,
         "launches_mesh_pipeline": mesh_r["sw_launches"],
         "launches_profiled_pipeline": mesh_r["profile"]["sw_launches"],
+        "launches_panman_cold": panman_b1,
+        "launches_panman_warm": panman["b1_launches"]["warm"],
         "max_abs_err": max(errs),
         "ms": ms_m,
         "plain_ms": plain_m,
@@ -2340,6 +2724,7 @@ def main(argv=None):
         "source": "panmap_tpu_torch/csrc/banded_long.cu",
         "replaces": "panmap_tpu/align/pallas_long.py:165",
         "launches": long_launches,
+        "launches_panman_long": panman_b2,
         "max_abs_err": long_err,
         "ms": long_ms,
         "plain_ms": long_plain_ms,

@@ -2,13 +2,13 @@
 reads simulated from a mutated copy of it, paired 150 bp reads
 (make_workload) or single-end Nanopore-like long reads
 (make_long_workload); a metagenomic mixture of five haplotypes over a
-meta index (make_meta_workload, see its docstring); and an ancient-DNA-like
+meta index (make_meta_workload, see its docstring); an ancient-DNA-like
 sample over a meta index of many taxa for read assignment
-(make_assign_workload).
+(make_assign_workload); and a PanMAN file with samples of its leaves
+(make_panman_workload and its long-read and meta variants).
 
-The repo bundles no PanMAN file and has no PanMAN writer, so chip_smoke.py
-and the CPU tests drive the port's stage functions with this workload
-instead of the CLI.  Its default size is that of the sars_20000 demo: 39,999
+The first four hand the port's stage functions an index in memory (the
+first two with a stub tree).  Their default size is that of the sars_20000 demo: 39,999
 tree nodes, ~2.42 M index rows (~60 per node), a 29,903 bp genome and
 51,169 read pairs of 150 bp (102,338 reads).
 
@@ -25,10 +25,17 @@ tree nodes, ~2.42 M index rows (~60 per node), a 29,903 bp genome and
    banded-SW kernel runs.
  - ``tree`` is a stub whose get_string returns the original genome for every
    node (the stub tests/test_align_columnar.py uses).
+
+The PanMAN workloads need no stub: write_panman writes a PanmanModel (a
+tree in preorder with its blocks, gap runs and mutations) as the file
+io/panman.py's load_panman decodes, make_panman_model draws such a tree at
+the sars_20000 demo's size (its node count, genome length and index rows),
+and the CLI builds its index from the file.
 """
 
 from __future__ import annotations
 
+import lzma
 import os
 import random
 from dataclasses import dataclass
@@ -36,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .index.builder import IndexArrays, IndexParams
+from .io.refidx import _CapnpEncoder
 from .meta.engine import sketch_meta_reads_full
 from .meta.index import MetaIndexArrays
 from .place.engine import sketch_reads
@@ -107,6 +115,19 @@ def _write_fastq(path: str, names, seqs, quals):
                          for n, s, q in zip(names, seqs, quals)))
 
 
+def _write_pairs(out_dir: str, reads) -> tuple:
+    """generate_reads' pairs as R1 / R2 FASTQ files in ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    r1 = os.path.join(out_dir, "reads_R1.fastq")
+    r2 = os.path.join(out_dir, "reads_R2.fastq")
+    names = [r[0] for r in reads]
+    _write_fastq(r1, [n + "/1" for n in names], [r[1] for r in reads],
+                 [r[2] for r in reads])
+    _write_fastq(r2, [n + "/2" for n in names], [r[3] for r in reads],
+                 [r[4] for r in reads])
+    return r1, r2
+
+
 def make_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
                   rows_lo: int = 30, rows_hi: int = 92,
                   genome_len: int = 29903, n_pairs: int = 51169,
@@ -118,15 +139,7 @@ def make_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
     genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, genome_len)])
     sample, _ = simulate_mutations(genome, n_snp, n_ins, n_del, (1, 9), pyrng)
     reads = generate_reads(sample, n_pairs, ERROR_MODELS["NovaSeq"], pyrng)
-    os.makedirs(out_dir, exist_ok=True)
-    r1 = os.path.join(out_dir, "reads_R1.fastq")
-    r2 = os.path.join(out_dir, "reads_R2.fastq")
-    names = [r[0] for r in reads]
-    _write_fastq(r1, [n + "/1" for n in names], [r[1] for r in reads],
-                 [r[2] for r in reads])
-    _write_fastq(r2, [n + "/2" for n in names], [r[3] for r in reads],
-                 [r[4] for r in reads])
-
+    r1, r2 = _write_pairs(out_dir, reads)
     idx = _make_index(rng, [r[1] for r in reads] + [r[3] for r in reads],
                       n_nodes, rows_lo, rows_hi, read_share, root_rows)
     return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2=r2,
@@ -221,6 +234,24 @@ def make_long_workload(out_dir: str, seed: int = 0, n_reads: int = 5000,
     pyrng = random.Random(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     genome = acgt[rng.integers(0, 4, genome_len)].tobytes().decode()
+    r1, seqs, junk = _long_reads(rng, pyrng, genome, out_dir, n_reads, len_lo,
+                                 len_hi, err, junk_share, n_snp, n_ins, n_del,
+                                 big_del)
+    idx = _make_index(rng, seqs, n_nodes, rows_lo, rows_hi, read_share,
+                      root_rows)
+    return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2="",
+                    n_reads=n_reads, n_rows=int(idx.node_offsets[-1]),
+                    junk=junk)
+
+
+def _long_reads(rng, pyrng, genome: str, out_dir: str, n_reads: int,
+                len_lo: int = 1000, len_hi: int = 1400, err: float = 0.02,
+                junk_share: float = 0.01, n_snp: int = 30, n_ins: int = 4,
+                n_del: int = 4, big_del: tuple = (150, 300)):
+    """make_long_workload's sample of ``genome`` (see there), written as
+    ``out_dir``/long_reads.fastq; returns (path, read sequences, names of
+    the junk reads)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
     sample, _ = simulate_mutations(genome, n_snp, n_ins, n_del, (1, 9), pyrng)
     d = int(rng.integers(big_del[0], big_del[1] + 1))
     p = int(rng.integers(len(sample) // 4, 3 * len(sample) // 4))
@@ -250,11 +281,7 @@ def make_long_workload(out_dir: str, seed: int = 0, n_reads: int = 5000,
     os.makedirs(out_dir, exist_ok=True)
     r1 = os.path.join(out_dir, "long_reads.fastq")
     _write_fastq(r1, names, seqs, quals)
-    idx = _make_index(rng, seqs, n_nodes, rows_lo, rows_hi, read_share,
-                      root_rows)
-    return Workload(idx=idx, tree=GenomeTree(genome), reads1=r1, reads2="",
-                    n_reads=n_reads, n_rows=int(idx.node_offsets[-1]),
-                    junk=tuple(n for n, j in zip(names, junk) if j))
+    return r1, seqs, tuple(n for n, j in zip(names, junk) if j)
 
 
 @dataclass
@@ -703,3 +730,386 @@ def make_assign_workload(out_dir: str, seed: int = 0, n_clades: int = 400,
                           taxa=tuple(node_ids[n] for n in taxa_nodes),
                           n_reads=n_reads, n_target=n_target,
                           n_rows=int(offsets[-1]))
+
+
+# ---- a PanMAN file, written from a seed ----------------------------------
+
+# block mutation flags of a Mutation record (io/panman.py's wire layout)
+BLOCK_MUT, BLOCK_INS, BLOCK_INV = 2, 4, 8
+# panman's NucMutationType (the low bits of a NucMut's mutInfo)
+NS, ND, NI, NSNPS = 0, 1, 2, 3
+_BASE_OF_CODE = np.frombuffer(b"-ACMGRSVTWYHKDBN", np.uint8)
+_ACGT_CODES = np.array([1, 2, 4, 8], np.uint8)
+_COMPLEMENT_CODE = np.zeros(16, np.uint8)
+_COMPLEMENT_CODE[[1, 2, 4, 8]] = [8, 4, 2, 1]
+
+
+def pack_nuc_mut(mut_type: int, codes) -> int:
+    """A NucMut's ``packed`` word: mutInfo (length << 4 | type) in the low
+    byte, then the 1-6 codes as nibbles, the first base highest."""
+    n = len(codes)
+    if not 1 <= n <= 6:
+        raise ValueError(f"a NucMut holds 1-6 bases, not {n}")
+    word = (n << 4) | mut_type
+    for i, c in enumerate(codes):
+        word |= int(c) << (8 + 4 * (n - 1 - i))
+    return word
+
+
+@dataclass
+class PanmanModel:
+    """One PanMAN tree as write_panman writes it.
+
+    names: node identifiers in DFS preorder (the root first); parent: each
+    node's parent's preorder index (the root's is 0); blocks: each block's
+    consensus as uint8 one-hot codes (A=1, C=2, G=4, T=8); gaps: [g, 3]
+    int64 rows (block, slot, length), a run of ``length`` gap columns
+    before main column ``slot`` (the GapList); block_muts: [b, 3] rows
+    (node, block, flags), flags BLOCK_INS for an insertion (with BLOCK_INV
+    inverted), BLOCK_INV for an inversion, 0 for a deletion; nuc_muts:
+    [m, 5] rows (node, block, position, gap position or -1, packed) in the
+    order a node applies them (by block, as the file groups them)."""
+
+    names: list
+    parent: np.ndarray
+    blocks: list
+    gaps: np.ndarray
+    block_muts: np.ndarray
+    nuc_muts: np.ndarray
+
+    def __post_init__(self):
+        self.index = {n: i for i, n in enumerate(self.names)}
+        n = len(self.names)
+        self._bm_off = np.searchsorted(self.block_muts[:, 0], np.arange(n + 1))
+        self._nm_off = np.searchsorted(self.nuc_muts[:, 0], np.arange(n + 1))
+
+    def leaves(self) -> list:
+        has_child = np.zeros(len(self.names), bool)
+        has_child[self.parent[1:]] = True
+        return [self.names[i] for i in np.flatnonzero(~has_child)]
+
+    def newick(self) -> str:
+        """The topology with a branch length of 1 everywhere, built from
+        the leaves up (a preorder index is above its parent's), without
+        recursion: the tree may be hundreds of levels deep."""
+        kids = [[] for _ in self.names]
+        for i in range(1, len(self.names)):
+            kids[int(self.parent[i])].append(i)
+        text = [""] * len(self.names)
+        for i in range(len(self.names) - 1, -1, -1):
+            inner = (f"({','.join(text[c] for c in kids[i])})" if kids[i]
+                     else "")
+            text[i] = inner + self.names[i] + (":1" if i else "")
+            for c in kids[i]:
+                text[c] = ""
+        return text[0] + ";"
+
+    def get_string(self, identifier: str, aligned: bool = False) -> str:
+        """The node's sequence from the model alone: each block switched
+        on or off and turned along the path from the root, its consensus
+        and gap runs overwritten by the path's mutations in order; a block
+        that is off is left out, an inverted one reverse-complemented;
+        ``aligned`` keeps the '-' columns of the blocks that are on."""
+        path = [self.index[identifier]]
+        while path[-1]:
+            path.append(int(self.parent[path[-1]]))
+        nb = len(self.blocks)
+        on = np.zeros(nb, bool)
+        fwd = np.ones(nb, bool)
+        main = [b.copy() for b in self.blocks]
+        runs = {(int(b), int(s)): np.zeros(int(n), np.uint8)
+                for b, s, n in self.gaps}
+        for node in reversed(path):
+            for _, b, flags in self.block_muts[self._bm_off[node]:
+                                               self._bm_off[node + 1]]:
+                if flags & BLOCK_INS:
+                    on[b], fwd[b] = True, not flags & BLOCK_INV
+                elif flags & BLOCK_INV:
+                    fwd[b] = not fwd[b]
+                else:
+                    on[b] = False
+            for _, b, pos, gap, packed in self.nuc_muts[
+                    self._nm_off[node]:self._nm_off[node + 1]]:
+                n = (int(packed) & 0xFF) >> 4
+                codes = [(int(packed) >> (8 + 4 * (n - 1 - i))) & 0xF
+                         for i in range(n)]
+                if gap < 0:
+                    main[b][pos:pos + n] = codes
+                else:
+                    runs[(int(b), int(pos))][gap:gap + n] = codes
+        out = []
+        for b in range(nb):
+            if not on[b]:
+                continue
+            parts = []
+            for p in range(len(main[b]) + 1):
+                if (b, p) in runs:
+                    parts.append(runs[(b, p)])
+                parts.append(main[b][p:p + 1])
+            codes = np.concatenate(parts)
+            if not fwd[b]:
+                codes = _COMPLEMENT_CODE[codes[::-1]]
+            if not aligned:
+                codes = codes[codes != 0]
+            out.append(_BASE_OF_CODE[codes].tobytes())
+        return b"".join(out).decode()
+
+
+def write_panman(path: str, model: PanmanModel):
+    """Write ``model`` as an xz-compressed PanMAN file, the layout that
+    io/panman.py's load_panman decodes:
+
+      TreeGroup {ptrs: [List(Tree)]}
+      Tree {ptrs: [newick Text, List(Node), List(ConsensusSeqToBlockIds),
+                   List(GapList)]}
+      Node {ptrs: [List(Mutation), annotations (null)]}, one record per
+           node in preorder plus the trailing empty record
+      Mutation {blockId << 32 @0, flags @8; ptrs: [List(NucMut)]}, one per
+           block a node touches, every list of 2 data words and 1 pointer
+           (the layout the vectorised decoder takes)
+      NucMut {pos i32 @0, gapPos i32 @4, gapExist bit @8, packed u32 @12}
+      ConsensusSeqToBlockIds {ptrs: [List(u64) blockId << 32, List(u32)
+           8 codes a word, big nibble first, ended by a 0 code,
+           List(bool) blockGapExist]}
+      GapList {blockId << 32 @0; ptrs: [List(i32) lengths, List(i32)
+           positions]} (the wire order, the reverse of the schema's)"""
+    n = len(model.names)
+    e = _CapnpEncoder()
+    group = e.alloc(2)
+    e.put_struct_ptr(0, group, 0, 2)
+    tree = e.composite_list(group, 1, 0, 4)
+    e.text(tree, model.newick())
+    nodes = e.composite_list(tree + 1, n + 1, 0, 2)
+    bm, nm = model.block_muts, model.nuc_muts
+    gap = np.where(nm[:, 3] < 0, 0, nm[:, 3])
+    nm_words = np.stack([
+        (nm[:, 2] & 0xFFFFFFFF) | ((gap & 0xFFFFFFFF) << 32),
+        (nm[:, 3] >= 0).astype(np.int64) | (nm[:, 4] << 32)], 1
+    ).astype(np.uint64)
+    for i in range(n):
+        rows = np.arange(model._nm_off[i], model._nm_off[i + 1])
+        flags = dict(zip(bm[model._bm_off[i]:model._bm_off[i + 1], 1].tolist(),
+                         bm[model._bm_off[i]:model._bm_off[i + 1], 2].tolist()))
+        touched = sorted(set(flags) | set(nm[rows, 1].tolist()))
+        if not touched:
+            continue
+        rec = e.composite_list(nodes + 2 * i, len(touched), 2, 1)
+        for r, b in enumerate(touched):
+            at = rec + 3 * r
+            e.words[at] = b << 32
+            e.words[at + 1] = (flags.get(b, 0)
+                               | (BLOCK_MUT if b in flags else 0))
+            mine = rows[nm[rows, 1] == b]
+            if len(mine):
+                first = e.composite_list(at + 2, len(mine), 2, 0)
+                e.words[first:first + 2 * len(mine)] = \
+                    nm_words[mine].reshape(-1).tolist()
+    cmap = e.composite_list(tree + 2, len(model.blocks), 0, 3)
+    for b, cons in enumerate(model.blocks):
+        codes = np.concatenate([cons, np.zeros(8 - len(cons) % 8, np.uint8)])
+        words = (codes.reshape(-1, 8).astype(np.uint32)
+                 << np.arange(28, -1, -4, dtype=np.uint32)).sum(1)
+        e.prim_list(cmap + 3 * b, [b << 32], 5, 8)
+        e.prim_list(cmap + 3 * b + 1, words, 4, 4)
+        e.prim_list(cmap + 3 * b + 2, [0], 1, 1)  # one bit: False
+    gap_blocks = np.unique(model.gaps[:, 0])
+    glist = e.composite_list(tree + 3, len(gap_blocks), 1, 2)
+    for j, b in enumerate(gap_blocks.tolist()):
+        at = glist + 3 * j
+        mine = model.gaps[model.gaps[:, 0] == b]
+        e.words[at] = b << 32
+        e.prim_list(at + 1, mine[:, 2], 4, 4)
+        e.prim_list(at + 2, mine[:, 1], 4, 4)
+    with lzma.open(path, "wb", preset=1) as fh:
+        fh.write(e.message())
+
+
+def make_panman_model(rng, n_nodes: int = 39999, genome_len: int = 29903,
+                      n_blocks: int = 30,
+                      indel_rate: float = 0.005) -> PanmanModel:
+    """A PanMAN tree from ``rng``: deep_preorder_parents' shape (a binary
+    tree of ~n_nodes / 2 genomes); a random root genome of ``genome_len``
+    bp cut into ``n_blocks`` blocks of 0.5-1.5x the mean length, each the
+    consensus of its block and switched on at the root; two gap runs of
+    12 columns declared in every block.  Every other node carries 2-5 SNPs
+    (NSNPS), with probability 0.4 a substitution of 2-6 bases (NS) and
+    with probability ``indel_rate`` an indel of 1-9 bp: a deletion writes
+    '-' over main columns (ND), an insertion writes bases into a declared
+    gap run (NI).  One block is switched off at the root of one subtree
+    and another inverted at the root of a second, disjoint one, each
+    subtree 1-5% of the nodes.
+
+    The SNP and substitution rates are fitted to the sars_20000 demo's
+    index: at the default size and seed 0 the CLI's index parameters give
+    2,436,878 rows (~61 a node), against the 2,422,142 rows that
+    BENCH_r01.json's log records for the demo's tree."""
+    gaps_per_block, gap_len, mnp_rate = 2, 12, 0.4
+    parent = deep_preorder_parents(rng, n_nodes).astype(np.int64)
+    weights = rng.uniform(0.5, 1.5, n_blocks)
+    lens = np.floor(weights / weights.sum() * genome_len).astype(np.int64)
+    lens[-1] += genome_len - lens.sum()
+    boff = np.concatenate(([0], np.cumsum(lens)))
+    block_of = np.repeat(np.arange(n_blocks), lens)
+    cur = _ACGT_CODES[rng.integers(0, 4, genome_len)]
+    blocks = [cur[boff[b]:boff[b + 1]].copy() for b in range(n_blocks)]
+    gaps = np.array([(b, s, gap_len) for b in range(n_blocks)
+                     for s in np.sort(rng.choice(np.arange(1, lens[b]),
+                                                 gaps_per_block,
+                                                 replace=False))],
+                    np.int64).reshape(-1, 3)
+    goff = np.concatenate(([0], np.cumsum(gaps[:, 2])))
+    gcur = np.zeros(int(goff[-1]), np.uint8)
+
+    # the block events, on two disjoint subtrees of 1-5% of the nodes
+    size = np.ones(n_nodes, np.int64)
+    for i in range(n_nodes - 1, 0, -1):
+        size[parent[i]] += size[i]
+    fit = np.flatnonzero((size >= max(2, n_nodes // 100))
+                         & (size <= max(3, n_nodes // 20)))
+    fit = fit[fit > 0]
+    off_at = int(rng.choice(fit))
+    fit = fit[(fit + size[fit] <= off_at) | (fit >= off_at + size[off_at])]
+    inv_at = int(rng.choice(fit))
+    off_block, inv_block = (int(b) for b in
+                            rng.choice(np.arange(1, n_blocks - 1), 2,
+                                       replace=False))
+    block_muts = [(0, b, BLOCK_INS) for b in range(n_blocks)]
+    block_muts += sorted([(off_at, off_block, 0), (inv_at, inv_block,
+                                                   BLOCK_INV)])
+
+    R = random.Random(int(rng.integers(1 << 62)))
+    idx_of = np.zeros(16, np.int64)
+    idx_of[_ACGT_CODES] = np.arange(4)
+    rows, stack = [], [(0, [])]
+    for i in range(1, n_nodes):
+        while stack[-1][0] != parent[i]:
+            for at, old in reversed(stack.pop()[1]):
+                if at >= 0:
+                    cur[at] = old
+                else:
+                    gcur[-at - 1] = old
+        undo = []
+
+        def substitute(g, n, mut_type):
+            olds = cur[g:g + n]
+            if (olds == 0).any() or block_of[g] != block_of[g + n - 1]:
+                return
+            new = _ACGT_CODES[(idx_of[olds] + [R.randrange(1, 4)
+                                                for _ in range(n)]) % 4]
+            undo.extend(zip(range(g, g + n), olds.tolist()))
+            cur[g:g + n] = new
+            b = int(block_of[g])
+            rows.append((i, b, g - boff[b], -1, pack_nuc_mut(mut_type, new)))
+
+        for _ in range(R.randint(2, 5)):
+            substitute(R.randrange(genome_len), 1, NSNPS)
+        if R.random() < mnp_rate:
+            n = R.randint(2, 6)
+            substitute(R.randrange(genome_len - n), n, NS)
+        if R.random() < indel_rate:
+            n = R.randint(1, 9)
+            if R.random() < 0.5:
+                g = R.randrange(genome_len - n)
+                b = int(block_of[g])
+                if block_of[g + n - 1] == b:
+                    undo.extend(zip(range(g, g + n), cur[g:g + n].tolist()))
+                    cur[g:g + n] = 0
+                    for j in range(0, n, 6):
+                        rows.append((i, b, g - boff[b] + j, -1,
+                                     pack_nuc_mut(ND, [0] * min(6, n - j))))
+            else:
+                k = R.randrange(len(gaps))
+                b, slot, glen = (int(x) for x in gaps[k])
+                new = _ACGT_CODES[[R.randrange(4) for _ in range(min(n, glen))]]
+                at = int(goff[k])
+                undo.extend((-(at + j) - 1, int(gcur[at + j]))
+                            for j in range(len(new)))
+                gcur[at:at + len(new)] = new
+                for j in range(0, len(new), 6):
+                    rows.append((i, b, slot, j,
+                                 pack_nuc_mut(NI, new[j:j + 6])))
+        stack.append((i, undo))
+
+    nuc = np.array(rows, np.int64).reshape(-1, 5)
+    nuc = nuc[np.lexsort((nuc[:, 1], nuc[:, 0]))]  # stable: by node, block
+    names = [f"node_{i}" for i in range(n_nodes)]
+    has_child = np.zeros(n_nodes, bool)
+    has_child[parent[1:]] = True
+    for i in np.flatnonzero(~has_child):
+        names[i] = f"S{i}/2020"  # leaves: sample names with a '/'
+    return PanmanModel(names=names, parent=parent, blocks=blocks, gaps=gaps,
+                       block_muts=np.array(block_muts, np.int64),
+                       nuc_muts=nuc)
+
+
+@dataclass
+class PanmanWorkload:
+    panman: str  # the written PanMAN file
+    model: PanmanModel
+    reads1: str  # FASTQ paths
+    reads2: str
+    leaf: str  # the leaf whose genome the reads were simulated from
+    n_reads: int
+    junk: tuple = ()  # names of reads that must come out unmapped
+    haplotypes: tuple = ()  # meta: the leaves of the mixture
+    proportions: tuple = ()  # and their true proportions
+
+
+def make_panman_workload(out_dir: str, seed: int = 0, n_nodes: int = 39999,
+                         genome_len: int = 29903, n_pairs: int = 51169,
+                         n_blocks: int = 30) -> PanmanWorkload:
+    """A PanMAN file (``out_dir``/tree.panman, make_panman_model's tree)
+    and a sample of paired 150 bp reads simulated from a mutated copy of a
+    random leaf's genome (30 SNPs, 4 insertions and 4 deletions), as
+    make_workload simulates them."""
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    model = make_panman_model(rng, n_nodes, genome_len, n_blocks)
+    os.makedirs(out_dir, exist_ok=True)
+    panman = os.path.join(out_dir, "tree.panman")
+    write_panman(panman, model)
+    leaves = model.leaves()
+    leaf = leaves[int(rng.integers(len(leaves)))]
+    sample, _ = simulate_mutations(model.get_string(leaf), 30, 4, 4, (1, 9),
+                                   pyrng)
+    reads = generate_reads(sample, n_pairs, ERROR_MODELS["NovaSeq"], pyrng)
+    r1, r2 = _write_pairs(out_dir, reads)
+    return PanmanWorkload(panman=panman, model=model, reads1=r1, reads2=r2,
+                          leaf=leaf, n_reads=2 * n_pairs)
+
+
+def make_panman_long_workload(w: PanmanWorkload, out_dir: str, seed: int = 0,
+                              n_reads: int = 1000, **kw) -> PanmanWorkload:
+    """Long reads on ``w``'s PanMAN file: a random leaf's genome mutated
+    and read as make_long_workload reads (``kw``: its read options)."""
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    leaves = w.model.leaves()
+    leaf = leaves[int(rng.integers(len(leaves)))]
+    r1, _, junk = _long_reads(rng, pyrng, w.model.get_string(leaf), out_dir,
+                              n_reads, **kw)
+    return PanmanWorkload(panman=w.panman, model=w.model, reads1=r1,
+                          reads2="", leaf=leaf, n_reads=n_reads, junk=junk)
+
+
+def make_panman_meta_workload(w: PanmanWorkload, out_dir: str, seed: int = 0,
+                              n_pairs: int = 200000) -> PanmanWorkload:
+    """A mixture on ``w``'s PanMAN file: ``n_pairs`` read pairs of 150 bp
+    (_simulate_pairs, NovaSeq-like errors) from five random leaves' genomes
+    at META_PROPORTIONS."""
+    rng = np.random.default_rng(seed)
+    leaves = w.model.leaves()
+    haps = tuple(leaves[int(i)] for i in
+                 rng.choice(len(leaves), len(META_PROPORTIONS),
+                            replace=False))
+    r1, r2, q1, q2 = _simulate_pairs(
+        rng, [w.model.get_string(h) for h in haps], META_PROPORTIONS,
+        n_pairs, ERROR_MODELS["NovaSeq"])
+    os.makedirs(out_dir, exist_ok=True)
+    path1 = os.path.join(out_dir, "meta_R1.fastq")
+    path2 = os.path.join(out_dir, "meta_R2.fastq")
+    _write_fastq_codes(path1, 1, r1, q1)
+    _write_fastq_codes(path2, 2, r2, q2)
+    return PanmanWorkload(panman=w.panman, model=w.model, reads1=path1,
+                          reads2=path2, leaf=haps[0], n_reads=2 * n_pairs,
+                          haplotypes=haps, proportions=META_PROPORTIONS)

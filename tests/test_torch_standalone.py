@@ -5,7 +5,9 @@ standard library, never jax and nothing of panmap_tpu.
        small synthetic single-sample workload, a two-line --batch manifest,
        a small --meta workload and a --meta --filter-and-assign sample on
        the CPU device, drives the long-read path and the CIGAR-overflow
-       oracle, and ends with no `jax*` / `panmap_tpu*` key in sys.modules
+       oracle, runs the CLI from a written PanMAN file (the decoder, both
+       index builders, a sample, --simulate, --dump-node), and ends with
+       no `jax*` / `panmap_tpu*` key in sys.modules
        (this process has both loaded, so only a subprocess can show it).
  (ii)  An ast walk over every .py of the port and chip_smoke.py finds no
        import of jax or panmap_tpu at any depth.
@@ -101,7 +103,8 @@ from panmap_tpu_torch.io.index_io import save_index
 from panmap_tpu_torch.meta.index import save_meta_index
 from panmap_tpu_torch.synthetic import (make_assign_workload,
                                         make_long_workload,
-                                        make_meta_workload, make_workload)
+                                        make_meta_workload,
+                                        make_panman_workload, make_workload)
 from panmap_tpu_torch.utils import device
 
 out = sys.argv[1]
@@ -117,6 +120,7 @@ w = make_workload(os.path.join(out, "reads"), seed=2, n_nodes=40,
                   genome_len=30000, n_pairs=300)
 idx_path = os.path.join(out, "x.ptidx.npz")
 save_index(idx_path, w.idx)
+load_panman = tp.load_panman
 tp.load_panman = lambda path: w.tree
 rc = main([panman, w.reads1, w.reads2, "-i", idx_path,
            "-o", os.path.join(out, "sample"), "-q"])
@@ -186,6 +190,20 @@ rc = main([panman, aw.reads1, "--meta", "--filter-and-assign", "-k", "15",
            "species", "--breadth-ratio", "-i", aidx_path,
            "-o", os.path.join(out, "assign"), "-q"])
 assert rc == 0, rc
+# the CLI from a written PanMAN file, no stand-in: the decoder, the index
+# and meta index builders, the single sample, --simulate and --dump-node
+tp.load_panman = load_panman
+pw = make_panman_workload(os.path.join(out, "panman"), seed=2, n_nodes=60,
+                          genome_len=5000, n_pairs=500, n_blocks=6)
+for argv in ([pw.reads1, pw.reads2, "-o", os.path.join(out, "from_file")],
+             ["--meta", "--stop", "index"],
+             ["--simulate", "--n-reads", "20", "-o",
+              os.path.join(out, "panman", "sim")],
+             ["--dump-node", pw.leaf, "-o", os.path.join(out, "leaf.fa")]):
+    rc = main([pw.panman, *argv, "-t", "2", "-q"])
+    assert rc == 0, (argv, rc)
+assert os.path.exists(pw.panman + ".ptidx.npz")
+assert os.path.exists(pw.panman + ".ptmidx.npz")
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "panmap_tpu")
              or k.startswith(("jax.", "jaxlib.", "panmap_tpu.")))
@@ -223,6 +241,9 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     for ext in ("mgsr.assignedReads.fastq", "mgsr.assignedReads.out",
                 "mgsr.assignedReadsLCANode.out", "mgsr.breadths.out"):
         assert f"assign.{ext}" in got["outputs"], ext
+    for ext in OUTPUTS:
+        assert f"from_file.{ext}" in got["outputs"], ext
+    assert "leaf.fa" in got["outputs"]
 
 
 # ---- (ii) no import of jax or panmap_tpu anywhere in the port -------------
