@@ -55,7 +55,8 @@ Phases, one line each with its time:
      tensors, as phase 5 does, would push ~6.6 G DP cells through the plain
      version on the CPU: minutes, so the plain version runs on the card.)
      The kernel's time over these launches is printed beside its bound and
-     the time of the kernel it replaced (PERF.md).
+     the time of the kernel it replaced (PERF.md); the align stage's split
+     comes from the port's spans (a host-only profiler over the first run).
   9. the meta scorer on the card: the sample sketched, TorchMetaScorer's
      max scores over all nodes and its snapshot over the run's own
      overlap-coefficient candidates bit-equal to the port's --host-score
@@ -72,7 +73,9 @@ Phases, one line each with its time:
      proportion within 2e-4; then, at full width, pinned to the five haplotypes
      (--em-candidates) on the card and with --em-f64: gate B, every
      proportion within 2e-4.  Launch counts of both kernels read 0 over the meta runs: this
-     path runs neither
+     path runs neither.  Each run is under a host-only profiler: the route,
+     R x M, the EM's steps and rounds and the stage seconds are the port's
+     spans
  11. read assignment on the card (the port's run_meta with
      filter_and_assign and demo 3's options plus --jplace, --breadth-ratio,
      the filtered scores TSV and the taxonomy at the species rank) on the
@@ -415,6 +418,33 @@ def run_stages(tp, w, cfg, device, stats, placer=None):
     return best, n_reads, final, walls, placed
 
 
+def traced(fn, *args, **kwargs):
+    """fn(*args, **kwargs) inside a host-only torch.profiler session, so
+    that the port's spans record (panmap_tpu_torch/trace.py); returns (its
+    result, {span name: [records]})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from panmap_tpu_torch import trace
+
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn(*args, **kwargs)
+    spans = {}
+    for r in trace.take():
+        spans.setdefault(r["name"], []).append(r)
+    return out, spans
+
+
+def span_s(spans, *names):
+    """Seconds in the named spans, summed over their records."""
+    return sum(r["end_ns"] - r["start_ns"] for n in names
+               for r in spans.get(n, ())) / 1e9
+
+
+def span_count(spans, name, key):
+    return sum(r["counts"].get(key, 0) for r in spans.get(name, ()))
+
+
 def same_outputs(a, b, what):
     """Raise unless the five outputs under prefixes a and b are
     byte-equal; returns their sizes."""
@@ -667,9 +697,9 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
     stats = {}
     long_dp.long_dp_rows = capturing
     long_dp.LAUNCHES = 0
-    try:
-        best, n_reads, final, walls, placed = run_stages(tp, w, cfg, dev,
-                                                         stats)
+    try:  # the walls under a host-only profiler, for the align spans
+        (best, n_reads, final, walls, placed), spans = traced(
+            run_stages, tp, w, cfg, dev, stats)
     finally:
         long_dp.long_dp_rows = launch
     launches = long_dp.LAUNCHES
@@ -725,9 +755,10 @@ def long_pipeline_phase(tp, long_dp, w, out, dev):
     shapes = [tuple(a[0].shape) + (a[4],) for a, _ in captured]
     report = (f"long-read pipeline on {n_reads} reads -> {best}: "
               + ", ".join(f"{k} {v:.2f}s" for k, v in walls.items())
-              + "; align split: front end {front_s:.2f}s, DP launches "
-              "{dp_s:.2f}s, D2H {d2h_s:.2f}s, host traceback "
-              "{traceback_s:.2f}s".format(**stats)
+              + f"; align split: front end "
+              f"{span_s(spans, 'align.front'):.2f}s, DP launches to their "
+              f"rows on the host {span_s(spans, 'align.dp'):.2f}s, host "
+              f"traceback {span_s(spans, 'align.traceback'):.2f}s"
               + f"; items {stats['items']}, device DP {stats['device_dp']}, "
               f"host DP {stats['host_dp']}; {launches} launches, shapes "
               f"(B, LQ, W) {shapes}, {cells / 1e9:.3f} G band cells, "
@@ -883,12 +914,26 @@ def meta_pipeline_phase(td, w, out, dev, f64_pairs=20000):
     walls = []
 
     def run(name, **kw):
+        """run_meta under a host-only profiler; its stages from the spans
+        (trace.py): the route, the EM's shape and steps, stage seconds."""
         cfg = meta_cfg(td, w, out, name, **kw)
-        stats = {}
         t0 = time.perf_counter()
-        if td.run_meta(cfg, midx=w.midx, device=dev, stats=stats) != 0:
+        rc, spans = traced(td.run_meta, cfg, midx=w.midx, device=dev)
+        if rc != 0:
             raise AssertionError(f"run_meta ({name}) failed")
-        stats["wall_s"] = time.perf_counter() - t0
+        stats = dict(
+            wall_s=time.perf_counter() - t0,
+            route=("device" if span_count(spans, "meta.score", "device")
+                   else "host"),
+            R=span_count(spans, "meta.sketch", "read_sets"),
+            M=span_count(spans, "meta.score", "candidates"),
+            sketch_s=span_s(spans, "meta.sketch"),
+            prep_s=span_s(spans, "meta.collapse", "meta.events",
+                          "meta.keys", "meta.upload", "meta.rank"),
+            score_s=span_s(spans, "meta.score"),
+            em_s=span_s(spans, "meta.em"),
+            em_iters=span_count(spans, "meta.em", "steps"),
+            em_rounds=span_count(spans, "meta.em", "rounds"))
         walls.append((name, stats))
         return abundance(cfg.output + ".mgsr.abundance.out"), stats
 
@@ -937,7 +982,8 @@ def meta_pipeline_phase(td, w, out, dev, f64_pairs=20000):
     parts = []
     for name, st in walls:
         # the numpy f64 EM does not count its steps
-        steps = (f" ({st['em_iters']} SQUAREM steps, "
+        steps = (f" ({st['em_iters']} SQUAREM steps in "
+                 f"{st['em_rounds']} rounds, "
                  f"{st['em_iters'] / max(st['em_s'], 1e-9):.0f} it/s)"
                  if st["em_iters"] else " (numpy f64)")
         parts.append(f"{name}: wall {st['wall_s']:.2f}s = sketch "
@@ -2359,7 +2405,8 @@ def walls_phase(args, n_runs):
     """--walls: both builds, the short and the meta workload, then phase
     5's stages and phase 10's run_meta on the card n_runs times each, after
     one run of each that warms the card up and is not counted; one JSON
-    line of each run's stage walls."""
+    line of each run's stage walls (run_meta's whole wall: no profiler
+    runs here, so its spans are off)."""
     import torch
 
     from panmap_tpu_torch import _kernels, native
@@ -2381,12 +2428,11 @@ def walls_phase(args, n_runs):
         cfg = pipeline_cfg(tp, w, args.out, f"walls{k}")
         runs.append(run_stages(tp, w, cfg, dev, {})[3])
     for k in range(n_runs + 1):
-        cfg, stats = meta_cfg(td, mw, args.out, f"meta_walls{k}"), {}
+        cfg = meta_cfg(td, mw, args.out, f"meta_walls{k}")
         t0 = time.perf_counter()
-        if td.run_meta(cfg, midx=mw.midx, device=dev, stats=stats) != 0:
+        if td.run_meta(cfg, midx=mw.midx, device=dev) != 0:
             raise AssertionError("run_meta failed")
-        stats["wall_s"] = time.perf_counter() - t0
-        meta.append(stats)
+        meta.append({"wall_s": time.perf_counter() - t0})
     log(json.dumps({"port": REPO, "walls": runs[1:], "meta": meta[1:]}))
     return 0
 

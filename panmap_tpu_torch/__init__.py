@@ -20,7 +20,9 @@ Device layers, written for the GPU:
  - parallel/ --mesh and --dist-*: the mesh of shards whose partial sums
              reduce over torch.distributed (mesh.py), the gloo process
              group (dist.py);
- - pipeline  the stage runner; __main__ the CLI; _kernels the nvcc build.
+ - pipeline  the stage runner; __main__ the CLI; _kernels the nvcc build;
+             trace the spans of the stages, kept while a torch.profiler
+             session records (--profile).
 
 Host layers, carried over from panmap_tpu under the same sub-package and
 file names (each without its jax parts): utils/fastnp, sketch/cpu, io/

@@ -17,7 +17,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import __version__
+from . import __version__, trace
 from .pipeline import PipelineConfig, default_prefix
 
 
@@ -323,8 +323,9 @@ def _main(argv):
 
 def _run_meta(args, out, log):
     """--meta: MetaConfig field for field as panmap_tpu.__main__ builds it,
-    run by the port's run_meta."""
-    from .meta.driver import MetaConfig, run_meta
+    run by the port's run_meta (inside a torch.profiler session with
+    --profile DIR, as run_pipeline runs the other modes)."""
+    from .meta.driver import MetaConfig
 
     mcfg = MetaConfig(
         panman=args.panman, reads1=args.reads1, reads2=args.reads2,
@@ -364,6 +365,15 @@ def _run_meta(args, out, log):
         stop=args.stop,
         log=log,
     )
+    with trace.profiled(args.profile_dir, log):
+        return _meta_samples(args, mcfg, log)
+
+
+def _meta_samples(args, mcfg, log):
+    """run_meta on the sample of the command line, or on each sample of its
+    --batch manifest over one meta index."""
+    from .meta.driver import run_meta
+
     if args.batch_file:
         # --batch works in both modes (main.cpp:2424-2443): meta loops the
         # run per sample; the index (and here also the in-memory arrays)
@@ -378,14 +388,16 @@ def _run_meta(args, out, log):
         except (OSError, FileNotFoundError) as exc:
             log.fail("batch", str(exc))
             return 1
-        midx, _ = ensure_meta_index(mcfg)
+        with trace.span("index.read"):
+            midx, _ = ensure_meta_index(mcfg)
         if args.stop == "index":
             return 0
         for i, (r1, r2, prefix) in enumerate(entries):
             if len(entries) > 1:
                 log(f"[{i + 1}/{len(entries)}] {r1} -> {prefix}")
             scfg = _dc_replace(mcfg, reads1=r1, reads2=r2, output=prefix)
-            rc = run_meta(scfg, midx=midx)
+            with trace.span("batch.sample", sample=i + 1):
+                rc = run_meta(scfg, midx=midx)
             if rc:
                 return rc
         return 0

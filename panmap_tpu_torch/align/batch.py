@@ -46,6 +46,7 @@ from .core import (
     encode,
 )
 
+from .. import trace
 from ..native import get_lib
 from . import sw
 
@@ -228,16 +229,20 @@ class TorchBatchAligner(Aligner):
         if fin is not None:
             fin()
 
+    @trace.spanned("align.sw")
     def _start_deferred(self, seqs: list, res: dict, mode: str,
                         async_: bool = False):
         """Enqueue the kernel over the mapped == 3 rows; returns a zero-arg
         finisher that waits on the scores, gates on MIN_DP_MAX and runs the
-        survivors' host traceback (None when no row was deferred)."""
+        survivors' host traceback (None when no row was deferred).  Both
+        halves are "align.sw" spans, counting what they add to
+        pallas_stats."""
         rows = np.flatnonzero(res["mapped"] == 3)
         if len(rows) == 0:
             return None
         stats = self.pallas_stats
         stats["deferred"] += len(rows)
+        trace.count("deferred", len(rows))
         ref = self.index.codes2
         lens = res["lens"]
         queries = {}
@@ -277,16 +282,19 @@ class TorchBatchAligner(Aligner):
                                       torch.from_numpy(ql).to(d))
 
         def finish():
-            if out is not None:
-                sc = out[:, 0].cpu().numpy()  # waits on the device
-                stats["device_scored"] += len(dev_rows)
-                for i, r in enumerate(dev_rows):
-                    if sc[i] >= MIN_DP_MAX:
-                        host_rows.append(r)  # survivor: host traceback
-                    else:
-                        res["mapped"][r] = 0
-            stats["survivors"] += len(host_rows)
-            self._host_dp_rows(seqs, res, host_rows, queries)
+            with trace.span("align.sw") as sp:
+                if out is not None:
+                    sc = out[:, 0].cpu().numpy()  # waits on the device
+                    stats["device_scored"] += len(dev_rows)
+                    sp.count("device_scored", len(dev_rows))
+                    for i, r in enumerate(dev_rows):
+                        if sc[i] >= MIN_DP_MAX:
+                            host_rows.append(r)  # survivor: host traceback
+                        else:
+                            res["mapped"][r] = 0
+                stats["survivors"] += len(host_rows)
+                sp.count("survivors", len(host_rows))
+                self._host_dp_rows(seqs, res, host_rows, queries)
 
         return finish
 

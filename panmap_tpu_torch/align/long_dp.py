@@ -24,11 +24,10 @@ bytes).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import trace
 from .longread import banded_dp_shifted
 
 NEG = -(1 << 28)
@@ -206,15 +205,13 @@ def long_dp_batch(items: list, ref_codes: np.ndarray, pre, device,
     DIRS_CAP direction bytes, then the z-drop replay and the traceback on
     the host.  Returns banded_dp_shifted's (score, qs, qe, rs, re, cigar)
     per item.  ``ref_dev``: ref_codes already on the device (int8).
-    ``stats`` accumulates items, device_dp and host_dp, and the seconds of
-    the launches (dp_s, synchronized), the copies to the host (d2h_s) and
-    the host traceback (traceback_s)."""
+    ``stats`` accumulates items, device_dp and host_dp.  Each launch is an
+    "align.dp" span (to its rows on the host) and an "align.traceback"
+    span."""
     device = torch.device(device)
     st = {} if stats is None else stats
     for key in ("items", "device_dp", "host_dp"):
         st.setdefault(key, 0)
-    for key in ("dp_s", "d2h_s", "traceback_s"):
-        st.setdefault(key, 0.0)
     st["items"] += len(items)
     out = [None] * len(items)
     dev_ids = []
@@ -248,23 +245,19 @@ def long_dp_batch(items: list, ref_codes: np.ndarray, pre, device,
             q, dlo, dhi = items[n]
             qb[s, : len(q)] = q
             meta[s] = (len(q), dlo, dhi - dlo + 1)
-        t0 = time.perf_counter()
-        dirs, rows = long_dp_rows(torch.from_numpy(qb).to(device), ref_dev,
-                                  torch.from_numpy(meta).to(device), pre, W)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # the launch ends inside dp_s
-        t1 = time.perf_counter()
-        dirs = dirs.cpu().numpy()
-        rows = rows.cpu().numpy()
-        t2 = time.perf_counter()
-        for s, n in enumerate(chunk):
-            q, dlo, dhi = items[n]
-            out[n] = _finish_one(q, dlo, dirs[s, :, : dhi - dlo + 1],
-                                 rows[s], pre)
+        with trace.span("align.dp"):
+            dirs, rows = long_dp_rows(torch.from_numpy(qb).to(device),
+                                      ref_dev,
+                                      torch.from_numpy(meta).to(device), pre,
+                                      W)
+            dirs = dirs.cpu().numpy()  # waits on the launch
+            rows = rows.cpu().numpy()
+        with trace.span("align.traceback"):
+            for s, n in enumerate(chunk):
+                q, dlo, dhi = items[n]
+                out[n] = _finish_one(q, dlo, dirs[s, :, : dhi - dlo + 1],
+                                     rows[s], pre)
         st["device_dp"] += len(chunk)
-        st["dp_s"] += t1 - t0
-        st["d2h_s"] += t2 - t1
-        st["traceback_s"] += time.perf_counter() - t2
     return out
 
 

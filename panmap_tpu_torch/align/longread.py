@@ -33,12 +33,12 @@ its plain PyTorch version for a CPU device), bit-equal by construction.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import trace
 from .core import Alignment, RefIndex, _RC_CODE, encode, minimizer_sketch
 
 
@@ -359,12 +359,10 @@ class TorchLongReadAligner(LongReadAligner):
     def __init__(self, ref: str, preset: LongPreset, device,
                  stats: dict | None = None):
         """``stats``: a dict that accumulates long_dp_batch's counters
-        (items, device_dp, host_dp) and stage seconds, plus the front end's
-        seconds (front_s)."""
+        (items, device_dp, host_dp)."""
         super().__init__(ref, preset)
         self.device = torch.device(device)
         self.stats = {} if stats is None else stats
-        self.stats.setdefault("front_s", 0.0)
         # the reference codes go to the device once per aligner
         self._ref_dev = torch.from_numpy(
             self.index.codes2.astype(np.int8)).to(self.device)
@@ -372,9 +370,8 @@ class TorchLongReadAligner(LongReadAligner):
     def align_batch(self, seqs: list) -> list:
         """One Alignment per read, equal field for field to
         LongReadAligner.align_batch(seqs)."""
-        t0 = time.perf_counter()
-        fronts = [self._chain_front(s) for s in seqs]
-        self.stats["front_s"] += time.perf_counter() - t0
+        with trace.span("align.front"):
+            fronts = [self._chain_front(s) for s in seqs]
         items = [(f[0], f[1], f[2]) for f in fronts if f is not None]
         from .long_dp import long_dp_batch  # imports this module
 

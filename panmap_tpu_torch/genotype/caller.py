@@ -32,6 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
+
 BASES = "ACGT"
 _BIDX = {b: i for i, b in enumerate(BASES)}
 for b in "acgt":
@@ -685,137 +687,138 @@ def pileup_call_columnar(ref: str, cols: ColumnarReads,
     objects are built — the pipeline feeds the BAM writer's arrays straight
     in (conversion.cpp:83-184 runs bcftools on the BAM; we run on the
     columns)."""
-    n = len(ref)
-    ref_idx = _BLUT[np.frombuffer(ref.encode(), dtype=np.uint8)]
+    with trace.span("genotype.columns"):
+        n = len(ref)
+        ref_idx = _BLUT[np.frombuffer(ref.encode(), dtype=np.uint8)]
 
-    nrec = len(cols.rs)
-    usable = np.ones(nrec, dtype=bool)
-    if cols.paired:
-        usable = cols.proper.astype(bool)  # orphan skip (mpileup.c:294)
-    uidx = np.flatnonzero(usable)
-    order = uidx[np.argsort(cols.rs[uidx], kind="stable")]
+        nrec = len(cols.rs)
+        usable = np.ones(nrec, dtype=bool)
+        if cols.paired:
+            usable = cols.proper.astype(bool)  # orphan skip (mpileup.c:294)
+        uidx = np.flatnonzero(usable)
+        order = uidx[np.argsort(cols.rs[uidx], kind="stable")]
 
-    # per-record ref span from the cigar stream (ops M/D/N/=/X advance ref)
-    ops_all = (cols.stream & np.uint32(0xF)).astype(np.int64)
-    lens_all = (cols.stream >> np.uint32(4)).astype(np.int64)
-    is_ref = (ops_all == 0) | (ops_all == 2) | (ops_all == 3) \
-        | (ops_all == 7) | (ops_all == 8)
-    drc = np.concatenate(([0], np.cumsum(np.where(is_ref, lens_all, 0))))
-    spans = drc[cols.coff[1:]] - drc[cols.coff[:-1]]
-    ends = cols.rs + spans
+        # per-record ref span from the cigar stream (ops M/D/N/=/X advance ref)
+        ops_all = (cols.stream & np.uint32(0xF)).astype(np.int64)
+        lens_all = (cols.stream >> np.uint32(4)).astype(np.int64)
+        is_ref = (ops_all == 0) | (ops_all == 2) | (ops_all == 3) \
+            | (ops_all == 7) | (ops_all == 8)
+        drc = np.concatenate(([0], np.cumsum(np.where(is_ref, lens_all, 0))))
+        spans = drc[cols.coff[1:]] - drc[cols.coff[:-1]]
+        ends = cols.rs + spans
 
-    # depth cap (per-start heap in the object path): skip entirely when the
-    # uncapped coverage never reaches max_depth — the heap size at any read
-    # equals the kept reads overlapping its start, bounded by true depth
-    cover = np.zeros(n + 2, dtype=np.int64)
-    np.add.at(cover, np.minimum(cols.rs[order], n), 1)
-    np.add.at(cover, np.minimum(ends[order], n + 1), -1)
-    if int(np.cumsum(cover).max()) >= max_depth:
-        import heapq
+        # depth cap (per-start heap in the object path): skip entirely when the
+        # uncapped coverage never reaches max_depth — the heap size at any read
+        # equals the kept reads overlapping its start, bounded by true depth
+        cover = np.zeros(n + 2, dtype=np.int64)
+        np.add.at(cover, np.minimum(cols.rs[order], n), 1)
+        np.add.at(cover, np.minimum(ends[order], n + 1), -1)
+        if int(np.cumsum(cover).max()) >= max_depth:
+            import heapq
 
-        heap: list = []
-        kept_l = []
-        rs_o = cols.rs[order].tolist()
-        en_o = ends[order].tolist()
-        for j, (r0, e0) in enumerate(zip(rs_o, en_o)):
-            while heap and heap[0] <= r0:
-                heapq.heappop(heap)
-            if len(heap) >= max_depth:
-                continue
-            heapq.heappush(heap, e0)
-            kept_l.append(order[j])
-        order = np.asarray(kept_l, dtype=np.int64)
-    kept = order  # emit-order record ids, sorted by rs
-    nk = len(kept)
-    if nk == 0:
-        return []
+            heap: list = []
+            kept_l = []
+            rs_o = cols.rs[order].tolist()
+            en_o = ends[order].tolist()
+            for j, (r0, e0) in enumerate(zip(rs_o, en_o)):
+                while heap and heap[0] <= r0:
+                    heapq.heappop(heap)
+                if len(heap) >= max_depth:
+                    continue
+                heapq.heappush(heap, e0)
+                kept_l.append(order[j])
+            order = np.asarray(kept_l, dtype=np.int64)
+        kept = order  # emit-order record ids, sorted by rs
+        nk = len(kept)
+        if nk == 0:
+            return []
 
-    # kept reads' flat cigar tables
-    nops = (cols.coff[1:] - cols.coff[:-1])[kept]
-    row_of = np.repeat(np.arange(nk, dtype=np.int64), nops)
-    op_src = np.repeat(cols.coff[:-1][kept], nops) + (
-        np.arange(int(nops.sum())) - np.repeat(
-            np.concatenate(([0], np.cumsum(nops)[:-1])), nops))
-    ops = ops_all[op_src]
-    lns = lens_all[op_src]
-    dq = np.where((ops == 0) | (ops == 1) | (ops == 4) | (ops == 7)
-                  | (ops == 8), lns, 0)
-    dr = np.where((ops == 0) | (ops == 2) | (ops == 3) | (ops == 7)
-                  | (ops == 8), lns, 0)
-    opstart = np.concatenate(([0], np.cumsum(nops)))[:-1]
-    exq = np.concatenate(([0], np.cumsum(dq)[:-1]))
-    exr = np.concatenate(([0], np.cumsum(dr)[:-1]))
-    qpos0 = exq - exq[opstart][row_of]          # query pos before each op
-    rpos0 = cols.rs[kept][row_of] + (exr - exr[opstart][row_of])
+        # kept reads' flat cigar tables
+        nops = (cols.coff[1:] - cols.coff[:-1])[kept]
+        row_of = np.repeat(np.arange(nk, dtype=np.int64), nops)
+        op_src = np.repeat(cols.coff[:-1][kept], nops) + (
+            np.arange(int(nops.sum())) - np.repeat(
+                np.concatenate(([0], np.cumsum(nops)[:-1])), nops))
+        ops = ops_all[op_src]
+        lns = lens_all[op_src]
+        dq = np.where((ops == 0) | (ops == 1) | (ops == 4) | (ops == 7)
+                      | (ops == 8), lns, 0)
+        dr = np.where((ops == 0) | (ops == 2) | (ops == 3) | (ops == 7)
+                      | (ops == 8), lns, 0)
+        opstart = np.concatenate(([0], np.cumsum(nops)))[:-1]
+        exq = np.concatenate(([0], np.cumsum(dq)[:-1]))
+        exr = np.concatenate(([0], np.cumsum(dr)[:-1]))
+        qpos0 = exq - exq[opstart][row_of]          # query pos before each op
+        rpos0 = cols.rs[kept][row_of] + (exr - exr[opstart][row_of])
 
-    # M segments -> flat per-base entries
-    is_m = (ops == 0) | (ops == 7) | (ops == 8)
-    sl = lns[is_m]
-    seg_p0 = rpos0[is_m]
-    seg_q0 = qpos0[is_m]
-    seg_rid = row_of[is_m]
-    csum = np.concatenate(([0], np.cumsum(sl)))
-    relb = np.arange(csum[-1]) - np.repeat(csum[:-1], sl)
-    flat_p = np.repeat(seg_p0, sl) + relb
-    flat_qi = np.repeat(seg_q0, sl) + relb
-    flat_rid = np.repeat(seg_rid, sl)
-    in_ref = (flat_p >= 0) & (flat_p < n)
-    flat_p, flat_qi, flat_rid = (flat_p[in_ref], flat_qi[in_ref],
-                                 flat_rid[in_ref])
-    depth = np.bincount(flat_p, minlength=n).astype(np.int64)
+        # M segments -> flat per-base entries
+        is_m = (ops == 0) | (ops == 7) | (ops == 8)
+        sl = lns[is_m]
+        seg_p0 = rpos0[is_m]
+        seg_q0 = qpos0[is_m]
+        seg_rid = row_of[is_m]
+        csum = np.concatenate(([0], np.cumsum(sl)))
+        relb = np.arange(csum[-1]) - np.repeat(csum[:-1], sl)
+        flat_p = np.repeat(seg_p0, sl) + relb
+        flat_qi = np.repeat(seg_q0, sl) + relb
+        flat_rid = np.repeat(seg_rid, sl)
+        in_ref = (flat_p >= 0) & (flat_p < n)
+        flat_p, flat_qi, flat_rid = (flat_p[in_ref], flat_qi[in_ref],
+                                     flat_rid[in_ref])
+        depth = np.bincount(flat_p, minlength=n).astype(np.int64)
 
-    # kept blobs (gather the kept reads' seq/qual segments)
-    lq = (cols.soff[1:] - cols.soff[:-1])[kept]
-    roffs = np.concatenate(([0], np.cumsum(lq)))
-    bsrc = np.repeat(cols.soff[:-1][kept], lq) + (
-        np.arange(int(lq.sum())) - np.repeat(roffs[:-1], lq))
-    Qcat = cols.qual_blob[bsrc].astype(np.int64)
-    Scat = cols.seq_blob[bsrc]
-    mqs = np.minimum(cols.mapq[kept], 60).astype(np.int64)
-    revs = cols.rev[kept].astype(np.int8)
+        # kept blobs (gather the kept reads' seq/qual segments)
+        lq = (cols.soff[1:] - cols.soff[:-1])[kept]
+        roffs = np.concatenate(([0], np.cumsum(lq)))
+        bsrc = np.repeat(cols.soff[:-1][kept], lq) + (
+            np.arange(int(lq.sum())) - np.repeat(roffs[:-1], lq))
+        Qcat = cols.qual_blob[bsrc].astype(np.int64)
+        Scat = cols.seq_blob[bsrc]
+        mqs = np.minimum(cols.mapq[kept], 60).astype(np.int64)
+        revs = cols.rev[kept].astype(np.int8)
 
-    # indel events (rare: python loop only over I/D ops, as the object path)
-    indel_events = []
-    quals_of = Qcat  # kept-concatenated, offsets roffs
-    idl = np.flatnonzero((ops == 1) | ((ops == 2) & (lns > 0)))
-    for oi in idl.tolist():
-        rid = int(row_of[oi])
-        ln = int(lns[oi])
-        rpos = int(rpos0[oi])
-        qpos = int(qpos0[oi])
-        base = int(roffs[rid])
-        rl = int(lq[rid])
-        if ops[oi] == 1:  # insertion
-            if 0 < rpos <= n and ln > 0:
-                w = quals_of[base + qpos : base + qpos + ln]
-                qev = int(w.min()) if len(w) else 0
-                a = rpos - 1
-                ins = Scat[base + qpos : base + qpos + ln].tobytes().decode()
-                while a >= 1 and ins[-1] == ref[a]:
-                    ins = ref[a] + ins[:-1]
-                    a -= 1
-                indel_events.append((a, rid, ("I", ins), qev))
-        else:  # deletion
-            if 0 < rpos and rpos + ln <= n:
-                qa = int(quals_of[base + qpos - 1]) if qpos > 0 else 0
-                qb = int(quals_of[base + qpos]) if qpos < rl else qa
-                s0 = rpos
-                while s0 >= 2 and ref[s0 - 1] == ref[s0 + ln - 1]:
-                    s0 -= 1
-                indel_events.append((s0 - 1, rid, ("D", ln), min(qa, qb)))
+        # indel events (rare: python loop only over I/D ops, as the object path)
+        indel_events = []
+        quals_of = Qcat  # kept-concatenated, offsets roffs
+        idl = np.flatnonzero((ops == 1) | ((ops == 2) & (lns > 0)))
+        for oi in idl.tolist():
+            rid = int(row_of[oi])
+            ln = int(lns[oi])
+            rpos = int(rpos0[oi])
+            qpos = int(qpos0[oi])
+            base = int(roffs[rid])
+            rl = int(lq[rid])
+            if ops[oi] == 1:  # insertion
+                if 0 < rpos <= n and ln > 0:
+                    w = quals_of[base + qpos : base + qpos + ln]
+                    qev = int(w.min()) if len(w) else 0
+                    a = rpos - 1
+                    ins = Scat[base + qpos : base + qpos + ln].tobytes().decode()
+                    while a >= 1 and ins[-1] == ref[a]:
+                        ins = ref[a] + ins[:-1]
+                        a -= 1
+                    indel_events.append((a, rid, ("I", ins), qev))
+            else:  # deletion
+                if 0 < rpos and rpos + ln <= n:
+                    qa = int(quals_of[base + qpos - 1]) if qpos > 0 else 0
+                    qb = int(quals_of[base + qpos]) if qpos < rl else qa
+                    s0 = rpos
+                    while s0 >= 2 and ref[s0 - 1] == ref[s0 + ln - 1]:
+                        s0 -= 1
+                    indel_events.append((s0 - 1, rid, ("D", ln), min(qa, qb)))
 
-    pairedok = (np.full(nk, cols.paired) & cols.proper[kept]
-                if cols.paired else np.zeros(nk, dtype=bool))
-    qnames = [cols.qnames[i] for i in kept.tolist()]
-    from .indel import IndelInput
+        pairedok = (np.full(nk, cols.paired) & cols.proper[kept]
+                    if cols.paired else np.zeros(nk, dtype=bool))
+        qnames = [cols.qnames[i] for i in kept.tolist()]
+        from .indel import IndelInput
 
-    indel_input = IndelInput(
-        rs=cols.rs[kept].astype(np.int64), ops=ops, lns=lns,
-        opoff=np.concatenate(([0], np.cumsum(nops))).astype(np.int64),
-        seq=Scat, quals=Qcat, soff=roffs.astype(np.int64), mapq=mqs,
-        rev=revs)
-    pair_kept = (cols.pair_ids[kept]
-                 if cols.pair_ids is not None and cols.paired else None)
+        indel_input = IndelInput(
+            rs=cols.rs[kept].astype(np.int64), ops=ops, lns=lns,
+            opoff=np.concatenate(([0], np.cumsum(nops))).astype(np.int64),
+            seq=Scat, quals=Qcat, soff=roffs.astype(np.int64), mapq=mqs,
+            rev=revs)
+        pair_kept = (cols.pair_ids[kept]
+                     if cols.pair_ids is not None and cols.paired else None)
     return _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
                           indel_events, lq, Qcat, Scat, mqs, revs,
                           pairedok, qnames, cols.rs[kept],
@@ -881,135 +884,143 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
     object front-end (pileup_call) and the columnar one
     (pileup_call_columnar).  ``device_tally`` is the device the per-column
     tallies run on (resolve_device_pileup), None for the host bincounts."""
-    records: list = []
-    roffs = np.concatenate(([0], np.cumsum(rlens)))
-    aqi = roffs[flat_rid] + flat_qi
-    _apply_overlap_tweaks_flat(pairedok, qnames, rs_arr, flat_p, aqi,
-                               flat_rid, Qcat, Scat, n, pair_ids=pair_ids)
-    q = Qcat[aqi]
-    left_ok = flat_qi > 0
-    q = np.where(left_ok,
-                 np.minimum(q, Qcat[np.maximum(aqi - 1, 0)] + DELTA_BQ), q)
-    right_ok = flat_qi + 1 < rlens[flat_rid]
-    q = np.where(right_ok,
-                 np.minimum(q, Qcat[np.minimum(aqi + 1, len(Qcat) - 1)]
-                            + DELTA_BQ), q)
-    keep_q = q >= MIN_BQ
-    q = np.minimum(q, MAX_BQ)
-    q = np.minimum(q, mqs[flat_rid])
-    q = np.clip(q, 4, 63)
-    b = _BLUT[Scat[aqi]]
-    e_p = flat_p[keep_q]
-    e_q = q[keep_q]
-    e_s = revs[flat_rid[keep_q]]
-    e_b = b[keep_q]
-    nonref = (e_b != ref_idx[e_p]) & (e_b < 4)
-    has_nonref = np.unique(e_p[nonref])
-    # group surviving entries of nonref columns, preserving order (stable)
-    want = np.zeros(n, dtype=bool)
-    want[has_nonref] = True
-    sel = want[e_p]
-    g_p, g_q, g_s, g_b = e_p[sel], e_q[sel], e_s[sel], e_b[sel]
-    order = np.argsort(g_p, kind="stable")
-    g_p, g_q, g_s, g_b = g_p[order], g_q[order], g_s[order], g_b[order]
+    with trace.span("genotype.columns"):
+        records: list = []
+        roffs = np.concatenate(([0], np.cumsum(rlens)))
+        aqi = roffs[flat_rid] + flat_qi
+        _apply_overlap_tweaks_flat(pairedok, qnames, rs_arr, flat_p, aqi,
+                                   flat_rid, Qcat, Scat, n, pair_ids=pair_ids)
+        q = Qcat[aqi]
+        left_ok = flat_qi > 0
+        q = np.where(left_ok,
+                     np.minimum(q, Qcat[np.maximum(aqi - 1, 0)] + DELTA_BQ), q)
+        right_ok = flat_qi + 1 < rlens[flat_rid]
+        q = np.where(right_ok,
+                     np.minimum(q, Qcat[np.minimum(aqi + 1, len(Qcat) - 1)]
+                                + DELTA_BQ), q)
+        keep_q = q >= MIN_BQ
+        q = np.minimum(q, MAX_BQ)
+        q = np.minimum(q, mqs[flat_rid])
+        q = np.clip(q, 4, 63)
+        b = _BLUT[Scat[aqi]]
+        e_p = flat_p[keep_q]
+        e_q = q[keep_q]
+        e_s = revs[flat_rid[keep_q]]
+        e_b = b[keep_q]
+        nonref = (e_b != ref_idx[e_p]) & (e_b < 4)
+        has_nonref = np.unique(e_p[nonref])
+        # group surviving entries of nonref columns, preserving order (stable)
+        want = np.zeros(n, dtype=bool)
+        want[has_nonref] = True
+        sel = want[e_p]
+        g_p, g_q, g_s, g_b = e_p[sel], e_q[sel], e_s[sel], e_b[sel]
+        order = np.argsort(g_p, kind="stable")
+        g_p, g_q, g_s, g_b = g_p[order], g_q[order], g_s[order], g_b[order]
     if len(g_p) == 0:
-        records.extend(_indel_records(ref, n, indel_events, flat_p,
-                                      flat_rid, q, keep_q, revs, mqs, depth,
-                                      indel_input))
+        with trace.span("genotype.indels", events=len(indel_events)):
+            records.extend(_indel_records(ref, n, indel_events, flat_p,
+                                          flat_rid, q, keep_q, revs, mqs,
+                                          depth, indel_input))
         records.sort(key=lambda rec: rec.pos)
         return records
-    gstart = np.concatenate(
-        ([0], np.flatnonzero(g_p[1:] != g_p[:-1]) + 1, [len(g_p)]))
-    ncol = len(gstart) - 1
-    # column ids + all-columns errmod (cal_columns; per-column cal_arrays is
-    # its oracle) and full-column base/qual/AD tallies in one pass
-    col_id = np.cumsum(np.concatenate(
-        ([0], (g_p[1:] != g_p[:-1]).astype(np.int64))))
-    capped = _cumcount(col_id) < ERRMOD_MAXN
-    DIAG, BSUM, _CC = _ERRMOD.cal_columns(
-        col_id[capped], g_q[capped], g_s[capped], g_b[capped], ncol)
-    if device_tally is not None:
-        BCF, QS, ADF, ADR = tally_columns_device(col_id, g_q, g_s, g_b, ncol,
-                                                 device_tally)
-    else:
-        BCF = np.bincount(col_id * 5 + np.minimum(g_b, 4),
-                          minlength=ncol * 5).reshape(ncol, 5)
-        v_all = g_b < 4
-        QS = np.bincount(col_id[v_all] * 4 + g_b[v_all],
-                         weights=g_q[v_all].astype(np.float64),
-                         minlength=ncol * 4).reshape(ncol, 4)
-        ADF = np.bincount(
-            col_id[v_all & (g_s == 0)] * 4 + g_b[v_all & (g_s == 0)],
-            minlength=ncol * 4).reshape(ncol, 4)
-        ADR = np.bincount(
-            col_id[v_all & (g_s == 1)] * 4 + g_b[v_all & (g_s == 1)],
-            minlength=ncol * 4).reshape(ncol, 4)
+    with trace.span("genotype.columns") as sp:
+        gstart = np.concatenate(
+            ([0], np.flatnonzero(g_p[1:] != g_p[:-1]) + 1, [len(g_p)]))
+        ncol = len(gstart) - 1
+        # column ids + all-columns errmod (cal_columns; per-column cal_arrays is
+        # its oracle) and full-column base/qual/AD tallies in one pass
+        col_id = np.cumsum(np.concatenate(
+            ([0], (g_p[1:] != g_p[:-1]).astype(np.int64))))
+        capped = _cumcount(col_id) < ERRMOD_MAXN
+        DIAG, BSUM, _CC = _ERRMOD.cal_columns(
+            col_id[capped], g_q[capped], g_s[capped], g_b[capped], ncol)
+        if device_tally is not None:
+            BCF, QS, ADF, ADR = tally_columns_device(col_id, g_q, g_s, g_b, ncol,
+                                                     device_tally)
+        else:
+            BCF = np.bincount(col_id * 5 + np.minimum(g_b, 4),
+                              minlength=ncol * 5).reshape(ncol, 5)
+            v_all = g_b < 4
+            QS = np.bincount(col_id[v_all] * 4 + g_b[v_all],
+                             weights=g_q[v_all].astype(np.float64),
+                             minlength=ncol * 4).reshape(ncol, 4)
+            ADF = np.bincount(
+                col_id[v_all & (g_s == 0)] * 4 + g_b[v_all & (g_s == 0)],
+                minlength=ncol * 4).reshape(ncol, 4)
+            ADR = np.bincount(
+                col_id[v_all & (g_s == 1)] * 4 + g_b[v_all & (g_s == 1)],
+                minlength=ncol * 4).reshape(ncol, 4)
+        sp.count("columns", ncol)
 
-    snp_cols = range(ncol)
-    if spectrum is not _NOPRUNE:
-        keep_col = _snp_prefilter(DIAG, QS, ref_idx, g_p, gstart, ncol,
-                                  spectrum)
-        if keep_col is not None:
-            snp_cols = np.flatnonzero(keep_col).tolist()
-    for gi in snp_cols:
-        a0 = int(gstart[gi])
-        p = int(g_p[a0])
-        r4 = int(ref_idx[p])
-        if r4 >= 4:
-            continue
-        qs = QS[gi]
-        adf = ADF[gi]
-        adr = ADR[gi]
-        tot = qs.sum()
-        if tot <= 0:
-            continue
-        qsum = qs / tot
-        alt_order = sorted((b for b in range(4) if b != r4 and qsum[b] > 0),
-                           key=lambda b: (-qsum[b], b))
-        if not alt_order:
-            continue
-        alleles = [r4] + alt_order
+    with trace.span("genotype.snps") as sp:
+        snp_cols = range(ncol)
+        if spectrum is not _NOPRUNE:
+            keep_col = _snp_prefilter(DIAG, QS, ref_idx, g_p, gstart, ncol,
+                                      spectrum)
+            if keep_col is not None:
+                snp_cols = np.flatnonzero(keep_col).tolist()
+        for gi in snp_cols:
+            a0 = int(gstart[gi])
+            p = int(g_p[a0])
+            r4 = int(ref_idx[p])
+            if r4 >= 4:
+                continue
+            qs = QS[gi]
+            adf = ADF[gi]
+            adr = ADR[gi]
+            tot = qs.sum()
+            if tot <= 0:
+                continue
+            qsum = qs / tot
+            alt_order = sorted((b for b in range(4) if b != r4 and qsum[b] > 0),
+                               key=lambda b: (-qsum[b], b))
+            if not alt_order:
+                continue
+            alleles = [r4] + alt_order
 
-        col_bsum = BSUM[gi]
-        base_counts = BCF[gi]
-        na = len(alleles)
-        # genotype-subset normalization incl. het entries (bcf_call_combine)
-        gvals = []
-        hom_idx = []
-        z = 0
-        for i2 in range(na):
-            for j2 in range(i2 + 1):
-                ai, aj = alleles[j2], alleles[i2]
-                if i2 == j2:
-                    gvals.append(DIAG[gi, ai])
-                    hom_idx.append(z)
-                else:
-                    # het likelihood for haploid calling never wins, but it
-                    # participates in the min-normalization; approximate with
-                    # the average of the two homs minus the lhet term's scale
-                    gvals.append(_het_phred(base_counts, ai, aj, col_bsum))
-                z += 1
-        gvals = np.array(gvals)
-        gmin = gvals.min()
-        pl_all = np.minimum(np.floor(gvals - gmin + 0.499), 255).astype(int)
-        pls = [int(pl_all[h]) for h in hom_idx]
-        gt = int(np.argmin(pls))
-        ads = [int(adf[a] + adr[a]) for a in alleles]
-        qual = float(pls[0]) if gt != 0 else (float(pls[1]) if len(pls) > 1 else 0.0)
-        records.append(
-            SiteRecord(
-                pos=p,
-                ref=BASES[r4],
-                alts=[BASES[a] for a in alt_order],
-                qual=qual,
-                dp=int(depth[p]),
-                gt=gt,
-                pls=pls,
-                ads=ads,
+            col_bsum = BSUM[gi]
+            base_counts = BCF[gi]
+            na = len(alleles)
+            # genotype-subset normalization incl. het entries (bcf_call_combine)
+            gvals = []
+            hom_idx = []
+            z = 0
+            for i2 in range(na):
+                for j2 in range(i2 + 1):
+                    ai, aj = alleles[j2], alleles[i2]
+                    if i2 == j2:
+                        gvals.append(DIAG[gi, ai])
+                        hom_idx.append(z)
+                    else:
+                        # het likelihood for haploid calling never wins, but it
+                        # participates in the min-normalization; approximate with
+                        # the average of the two homs minus the lhet term's scale
+                        gvals.append(_het_phred(base_counts, ai, aj, col_bsum))
+                    z += 1
+            gvals = np.array(gvals)
+            gmin = gvals.min()
+            pl_all = np.minimum(np.floor(gvals - gmin + 0.499), 255).astype(int)
+            pls = [int(pl_all[h]) for h in hom_idx]
+            gt = int(np.argmin(pls))
+            ads = [int(adf[a] + adr[a]) for a in alleles]
+            qual = float(pls[0]) if gt != 0 else (float(pls[1]) if len(pls) > 1 else 0.0)
+            records.append(
+                SiteRecord(
+                    pos=p,
+                    ref=BASES[r4],
+                    alts=[BASES[a] for a in alt_order],
+                    qual=qual,
+                    dp=int(depth[p]),
+                    gt=gt,
+                    pls=pls,
+                    ads=ads,
+                )
             )
-        )
-    records.extend(_indel_records(ref, n, indel_events, flat_p, flat_rid,
-                                  q, keep_q, revs, mqs, depth, indel_input))
+        sp.count("columns_called", len(snp_cols))
+    with trace.span("genotype.indels", events=len(indel_events)):
+        records.extend(_indel_records(ref, n, indel_events, flat_p, flat_rid,
+                                      q, keep_q, revs, mqs, depth,
+                                      indel_input))
     records.sort(key=lambda rec: rec.pos)
     return records
 

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import native
+from .. import native, trace
 from ..index.builder import IndexParams
 from ..io import fastq
 from ..io.panman import load_panman
@@ -142,6 +142,7 @@ def _resolve_meta_mesh(cfg: MetaConfig):
     return make_mesh(min(want, n_avail))
 
 
+@trace.spanned("meta.sketch")
 def sketch(cfg: MetaConfig, midx):
     """Read seedmer sets of the sample, deduplicated: (reads, dup_index)."""
     p = midx.params
@@ -167,6 +168,8 @@ def sketch(cfg: MetaConfig, midx):
             seqs, p.k, p.s, p.t, p.l, p.open, dust_threshold=cfg.dust)
         cfg.log(f"[meta] {len(seqs)} reads -> {len(reads)} unique seedmer sets "
                 f"({n_dust} low-complexity discarded)")
+    trace.count("reads", len(seqs))
+    trace.count("read_sets", len(reads))
     return reads, dup_index
 
 
@@ -175,7 +178,8 @@ def make_scorers(cfg: MetaConfig, midx, reads, device, mesh=None):
     scorer takes large read sets unless pseudochain, the scores TSV or
     --host-score asks for the host one.  ``mesh``: its shards split the
     device scorer's reads."""
-    scorer = MetaScorer(midx, reads)
+    with trace.span("meta.collapse"):
+        scorer = MetaScorer(midx, reads)
     fast = None
     if (not cfg.pseudochain and not cfg.write_read_scores_unfiltered
             and len(reads) >= FAST_MIN_READS and not cfg.host_score):
@@ -186,6 +190,7 @@ def make_scorers(cfg: MetaConfig, midx, reads, device, mesh=None):
     return scorer, fast
 
 
+@trace.spanned("meta.rank")
 def rank_candidates(cfg: MetaConfig, midx, scorer, fast):
     """The EM's candidate nodes: the top --top-oc shared overlap-coefficient
     ranks over kept nodes (leaves only with --em-leaves-only), or the nodes
@@ -247,10 +252,13 @@ def rank_candidates(cfg: MetaConfig, midx, scorer, fast):
     return candidates
 
 
+@trace.spanned("meta.score")
 def score(cfg: MetaConfig, scorer, fast, candidates):
     """(max_score int32 [R], snap, node_scores or None).  snap is the device
     scorer's [R, len(candidates)] tensor, or the host scorer's [len
     (candidates), R] uint16 array."""
+    trace.count("candidates", len(candidates))
+    trace.count("device", fast is not None)
     if fast is not None:
         max_score, snap = fast.score_all(candidates)
         return max_score, snap, None
@@ -278,6 +286,7 @@ def em_inputs(cfg: MetaConfig, reads, max_score):
     return read_lens, weights
 
 
+@trace.spanned("meta.em")
 def run_em(cfg: MetaConfig, snap, read_lens, weights, cand_names, device,
            mesh=None):
     """The abundance EM on the snapshot: host numpy f64 with --em-f64,
@@ -321,19 +330,20 @@ def write_abundance(cfg: MetaConfig, midx, scorer, res) -> str:
     return out_path
 
 
-def run_meta(cfg: MetaConfig, midx=None, device=None,
-             stats: dict | None = None) -> int:
+@trace.spanned("run")
+def run_meta(cfg: MetaConfig, midx=None, device=None) -> int:
     """Abundance deconvolution of one sample, or its read assignment with
     cfg.filter_and_assign; ``device`` defaults to the
-    first CUDA device (a CPU device is for the parity tests).  A ``stats``
-    dict receives the route ("device" or "host"), the stage walls in
-    seconds (sketch_s, prep_s, score_s, em_s), the EM's SQUAREM steps
-    (em_iters) and the EM matrix's shape (R, M)."""
+    first CUDA device (a CPU device is for the parity tests).  Its stages
+    are spans (trace.py): meta.sketch counts the reads and read sets,
+    meta.score the candidates and the route (device 1 or 0), meta.em the
+    torch EM's SQUAREM steps and rounds."""
     native.require_lib()  # a failed build raises here, not a silent slow path
     # the index is built (forking build workers) or loaded BEFORE the first
     # CUDA call: a CUDA context does not survive fork
     if midx is None:
-        midx, _ = ensure_meta_index(cfg)
+        with trace.span("index.read"):
+            midx, _ = ensure_meta_index(cfg)
     if cfg.stop == "index" or not cfg.reads1:
         return 0
     device = as_device(device)
@@ -341,31 +351,24 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
         from .assign import run_filter_and_assign
 
         return run_filter_and_assign(cfg, midx, device)
-    stats = {} if stats is None else stats
 
     # CPU tensors (the parity tests' choice) get no mesh
     mesh = _resolve_meta_mesh(cfg) if device.type == "cuda" else None
     if mesh is not None:
         device = mesh.devices[0]
-    t0 = time.perf_counter()
     reads, dup_index = sketch(cfg, midx)
-    t1 = time.perf_counter()
     scorer, fast = make_scorers(cfg, midx, reads, device, mesh)
     candidates = rank_candidates(cfg, midx, scorer, fast)
     if candidates is None:
         return 1
-    t2 = time.perf_counter()
+    t0 = time.time()
     max_score, snap, node_scores = score(cfg, scorer, fast, candidates)
     if fast is not None and device.type == "cuda":
         import torch
 
-        torch.cuda.synchronize(device)
-    t3 = time.perf_counter()
+        torch.cuda.synchronize(device)  # the logged seconds hold the card's
     cfg.log(f"[meta] scored {len(reads)} read sets over the tree in "
-            f"{t3 - t2:.1f}s")
-    stats.update(route="device" if fast is not None else "host",
-                 sketch_s=t1 - t0, prep_s=t2 - t1, score_s=t3 - t2,
-                 R=len(reads), M=len(candidates))
+            f"{time.time() - t0:.1f}s")
 
     if cfg.write_read_scores_unfiltered:
         from .engine import count_epp, write_read_scores_tsv
@@ -382,10 +385,9 @@ def run_meta(cfg: MetaConfig, midx=None, device=None,
         cfg.log("[meta] no reads remain for EM")
         return 0
     cand_names = [midx.node_ids[n] for n in candidates]
-    t0 = time.perf_counter()
+    t0 = time.time()
     res = run_em(cfg, snap, read_lens, weights, cand_names, device, mesh)
-    em_dt = time.perf_counter() - t0
-    stats.update(em_s=em_dt, em_iters=res.n_iterations)
+    em_dt = time.time() - t0
     if res.n_iterations:
         cfg.log(f"[meta] EM: {res.n_iterations} SQUAREM steps in {em_dt:.1f}s "
                 f"({res.n_iterations / max(em_dt, 1e-9):.0f} iters/s)")

@@ -17,6 +17,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .. import trace
 from .engine import (
     ERROR_RATE,
     PROP_THRESHOLD_TO_REMOVE,
@@ -194,7 +195,10 @@ def squarem(S: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
         n_pass, n_alive = int(passed.sum()), int(alive.sum())
         alive = passed
         if n_pass == n_alive or rnd + 1 >= max_rounds or n_pass == 0:
-            return p0, alive, int(tot)
+            steps = int(tot)
+            trace.count("steps", steps)
+            trace.count("rounds", rnd + 1)
+            return p0, alive, steps
         rnd += 1
         del plane
         plane = scale(alive)

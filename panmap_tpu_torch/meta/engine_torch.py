@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .events import (
     overlap_coefficients_from_events,
     presence_events,
@@ -155,114 +156,123 @@ class TorchMetaScorer:
         self.mesh = mesh
         self.n_nodes = len(midx.node_ids)
 
-        all_h = (np.concatenate([r.hashes for r in reads])
-                 if reads else np.empty(0, np.uint64))
-        uniq_h = np.unique(all_h)
-        # only hashes that exist somewhere in the INDEX can ever flip
-        # presence; error seedmers get no P row and map to the dummy row
-        idx_h = np.unique(np.asarray(midx.seed_hash, dtype=np.uint64))
-        if len(idx_h) and len(uniq_h):
-            ii = np.minimum(np.searchsorted(idx_h, uniq_h), len(idx_h) - 1)
-            self.read_hashes = uniq_h[idx_h[ii] == uniq_h]
-        else:
-            self.read_hashes = uniq_h[:0]
-        self.ev = presence_events(midx, self.read_hashes)
-        U = len(self.read_hashes)
-        self.U = U
-        # P row layout: [fwd uid rows | rev uid rows | one zero dummy row]
-        self.n_rows = 2 * U + 1
-        # TpuMetaScorer's int32 rule for its flat event scatter (on its
-        # pow2-padded rows): chunks stay 2,048 nodes wide unless the plane
-        # would reach 2^31 cells
-        C = self.NODE_CHUNK
-        while C > 32 and self.n_rows * C >= (1 << 31):
-            C //= 2
-        self.NODE_CHUNK = C
+        with trace.span("meta.events") as sp:
+            all_h = (np.concatenate([r.hashes for r in reads])
+                     if reads else np.empty(0, np.uint64))
+            uniq_h = np.unique(all_h)
+            # only hashes that exist somewhere in the INDEX can ever flip
+            # presence; error seedmers get no P row and map to the dummy row
+            idx_h = np.unique(np.asarray(midx.seed_hash, dtype=np.uint64))
+            if len(idx_h) and len(uniq_h):
+                ii = np.minimum(np.searchsorted(idx_h, uniq_h), len(idx_h) - 1)
+                self.read_hashes = uniq_h[idx_h[ii] == uniq_h]
+            else:
+                self.read_hashes = uniq_h[:0]
+            self.ev = presence_events(midx, self.read_hashes)
+            U = len(self.read_hashes)
+            self.U = U
+            # P row layout: [fwd uid rows | rev uid rows | one zero dummy row]
+            self.n_rows = 2 * U + 1
+            # TpuMetaScorer's int32 rule for its flat event scatter (on its
+            # pow2-padded rows): chunks stay 2,048 nodes wide unless the plane
+            # would reach 2^31 cells
+            C = self.NODE_CHUNK
+            while C > 32 and self.n_rows * C >= (1 << 31):
+                C //= 2
+            self.NODE_CHUNK = C
+            sp.count("read_hashes", U)
+            sp.count("events", len(self.ev["ev_node"]))
 
-        # flip events sorted by preorder position, keyed by (orient, uid)
-        ev = self.ev
-        key = (np.where(ev["ev_rev"], U, 0)
-               + ev["ev_uid"]).astype(np.int64)
-        order = np.argsort(ev["ev_node"], kind="stable")
-        self._evp_pos = ev["ev_node"][order].astype(np.int64)
-        self._evp_key = key[order]
-        self._evp_delta = ev["ev_delta"][order].astype(np.int32)
-        self.ev_pos = self._evp_pos
+        with trace.span("meta.keys"):
+            # flip events sorted by preorder position, keyed by (orient, uid)
+            ev = self.ev
+            key = (np.where(ev["ev_rev"], U, 0)
+                   + ev["ev_uid"]).astype(np.int64)
+            order = np.argsort(ev["ev_node"], kind="stable")
+            self._evp_pos = ev["ev_node"][order].astype(np.int64)
+            self._evp_key = key[order]
+            self._evp_delta = ev["ev_delta"][order].astype(np.int32)
+            self.ev_pos = self._evp_pos
 
-        # each read gets S key slots (S = its most seedmers); scoring is a
-        # row gather of P plus a sum over the slot axis
-        R = len(reads)
-        nseeds = np.array([len(r.hashes) for r in reads], dtype=np.int64)
-        if U:
-            occ_pos = np.minimum(np.searchsorted(self.read_hashes, all_h),
-                                 U - 1)
-            occ_found = self.read_hashes[occ_pos] == all_h
-        else:
-            occ_pos = np.zeros(len(all_h), dtype=np.int64)
-            occ_found = np.zeros(len(all_h), dtype=bool)
-        occ_uid = occ_pos.astype(np.int64)
-        occ_rev = (np.concatenate([np.asarray(r.revs, dtype=bool)
-                                   for r in reads])
-                   if reads else np.empty(0, bool))
-        S = max(int(nseeds.max()) if R else 1, 1)
-        self.n_slots = S
-        dummy = self.n_rows - 1  # the all-zero P row
-        fwd_sl = np.full((R, S), dummy, dtype=np.int32)
-        rev_sl = np.full((R, S), dummy, dtype=np.int32)
-        row_of = np.repeat(np.arange(R, dtype=np.int64), nseeds)
-        slot_of = (np.arange(len(occ_uid), dtype=np.int64)
-                   - np.repeat(np.cumsum(nseeds) - nseeds, nseeds))
-        fwd_sl[row_of, slot_of] = np.where(
-            ~occ_found, dummy,
-            np.where(occ_rev, U + occ_uid, occ_uid))
-        rev_sl[row_of, slot_of] = np.where(
-            ~occ_found, dummy,
-            np.where(occ_rev, occ_uid, U + occ_uid))
-        self.fwd_keys = fwd_sl
-        self.rev_keys = rev_sl
+            # each read gets S key slots (S = its most seedmers); scoring is a
+            # row gather of P plus a sum over the slot axis
+            R = len(reads)
+            nseeds = np.array([len(r.hashes) for r in reads], dtype=np.int64)
+            if U:
+                occ_pos = np.minimum(np.searchsorted(self.read_hashes, all_h),
+                                     U - 1)
+                occ_found = self.read_hashes[occ_pos] == all_h
+            else:
+                occ_pos = np.zeros(len(all_h), dtype=np.int64)
+                occ_found = np.zeros(len(all_h), dtype=bool)
+            occ_uid = occ_pos.astype(np.int64)
+            occ_rev = (np.concatenate([np.asarray(r.revs, dtype=bool)
+                                       for r in reads])
+                       if reads else np.empty(0, bool))
+            S = max(int(nseeds.max()) if R else 1, 1)
+            self.n_slots = S
+            dummy = self.n_rows - 1  # the all-zero P row
+            fwd_sl = np.full((R, S), dummy, dtype=np.int32)
+            rev_sl = np.full((R, S), dummy, dtype=np.int32)
+            row_of = np.repeat(np.arange(R, dtype=np.int64), nseeds)
+            slot_of = (np.arange(len(occ_uid), dtype=np.int64)
+                       - np.repeat(np.cumsum(nseeds) - nseeds, nseeds))
+            fwd_sl[row_of, slot_of] = np.where(
+                ~occ_found, dummy,
+                np.where(occ_rev, U + occ_uid, occ_uid))
+            rev_sl[row_of, slot_of] = np.where(
+                ~occ_found, dummy,
+                np.where(occ_rev, occ_uid, U + occ_uid))
+            self.fwd_keys = fwd_sl
+            self.rev_keys = rev_sl
 
-        # per-node-chunk carry-in presence state (flips with pos < chunk lo)
-        self._chunk_lo = list(range(0, self.n_nodes + 1, C))
-        self._carries = []
-        state = np.zeros(self.n_rows, dtype=np.int32)
-        prev = 0
-        for lo in self._chunk_lo:
-            cut = np.searchsorted(self._evp_pos, lo)
-            np.add.at(state, self._evp_key[prev:cut],
-                      self._evp_delta[prev:cut])
-            prev = cut
-            self._carries.append(state.copy())
-        self._ev_bounds = np.searchsorted(self._evp_pos,
-                                          self._chunk_lo + [self.n_nodes + 1])
-        ev_col = self._evp_pos - np.repeat(
-            np.asarray(self._chunk_lo, np.int64), np.diff(self._ev_bounds))
-        self.n_chunks = len(self._chunk_lo)
-        # scores are <= S: int16 snapshots unless a read has more seedmers
-        self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
+            # per-node-chunk carry-in presence state (flips with pos <
+            # chunk lo)
+            self._chunk_lo = list(range(0, self.n_nodes + 1, C))
+            self._carries = []
+            state = np.zeros(self.n_rows, dtype=np.int32)
+            prev = 0
+            for lo in self._chunk_lo:
+                cut = np.searchsorted(self._evp_pos, lo)
+                np.add.at(state, self._evp_key[prev:cut],
+                          self._evp_delta[prev:cut])
+                prev = cut
+                self._carries.append(state.copy())
+            self._ev_bounds = np.searchsorted(
+                self._evp_pos, self._chunk_lo + [self.n_nodes + 1])
+            ev_col = self._evp_pos - np.repeat(
+                np.asarray(self._chunk_lo, np.int64), np.diff(self._ev_bounds))
+            self.n_chunks = len(self._chunk_lo)
+            # scores are <= S: int16 snapshots unless a read has more seedmers
+            self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
 
-        # ONE upload of everything the chunk loop reads: the events and
-        # carries to every distinct device, the reads' keys to their shard
-        ev_host = (self._evp_key, ev_col, self._evp_delta,
-                   np.stack(self._carries))
-        devs = [self.device] if mesh is None else list(mesh.devices)
-        self._ev_on = {d: tuple(torch.from_numpy(x).to(d) for x in ev_host)
-                       for d in dict.fromkeys(devs)}
-        if mesh is None:
-            self._fwd_t = torch.from_numpy(fwd_sl).to(self.device)
-            self._rev_t = torch.from_numpy(rev_sl).to(self.device)
-            self._shards = [(self.device, self._fwd_t, self._rev_t)]
-        else:
-            # inert blocks: every slot on the all-zero dummy row
-            B, nd = self.READ_CHUNK, len(devs)
-            nb = max(-(-R // B), 1)
-            rpad = -(-nb // nd) * nd * B
-            keys = [np.concatenate([x, np.full((rpad - R, S), dummy,
-                                               np.int32)])
-                    for x in (fwd_sl, rev_sl)]
-            per = rpad // nd
-            self._shards = [
-                (d, *(torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
-                      for x in keys)) for i, d in enumerate(devs)]
+        with trace.span("meta.upload") as sp:
+            # ONE upload of everything the chunk loop reads: the events and
+            # carries to every distinct device, the reads' keys to their shard
+            ev_host = (self._evp_key, ev_col, self._evp_delta,
+                       np.stack(self._carries))
+            devs = [self.device] if mesh is None else list(mesh.devices)
+            self._ev_on = {d: tuple(torch.from_numpy(x).to(d) for x in ev_host)
+                           for d in dict.fromkeys(devs)}
+            if mesh is None:
+                self._fwd_t = torch.from_numpy(fwd_sl).to(self.device)
+                self._rev_t = torch.from_numpy(rev_sl).to(self.device)
+                self._shards = [(self.device, self._fwd_t, self._rev_t)]
+            else:
+                # inert blocks: every slot on the all-zero dummy row
+                B, nd = self.READ_CHUNK, len(devs)
+                nb = max(-(-R // B), 1)
+                rpad = -(-nb // nd) * nd * B
+                keys = [np.concatenate([x, np.full((rpad - R, S), dummy,
+                                                   np.int32)])
+                        for x in (fwd_sl, rev_sl)]
+                per = rpad // nd
+                self._shards = [
+                    (d, *(torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
+                          for x in keys)) for i, d in enumerate(devs)]
+            sp.count("bytes", sum(t.nbytes for ts in self._ev_on.values()
+                                  for t in ts)
+                     + sum(t.nbytes for _, *ts in self._shards for t in ts))
 
     def overlap_coefficients(self) -> np.ndarray:
         """OC per dfs index as prefix sums of the presence events."""

@@ -28,7 +28,7 @@ stages that touch the device are the port's:
  - --mesh (_resolve_mesh): the placer's index rows shard over the run's
    cards, or over every rank's card in a process group (parallel/);
  - --profile: the run inside torch.profiler, its trace written to the
-   directory.
+   directory; the stages' spans (trace.py) are its "panmap:" ranges.
 
 Not carried, since they served only a remote TPU link: the backend warm-up,
 the watchdog, the one-shot remote policy and the cold-dispatch race.  Nor
@@ -45,7 +45,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import native
+from . import native, trace
 from .genotype.caller import (
     ColumnarReads,
     PlacedRead,
@@ -173,7 +173,8 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
         if magic == b"PMI1":
             from .io.refidx import read_ref_index
 
-            idx = read_ref_index(cfg.index_path)
+            with trace.span("index.read"):
+                idx = read_ref_index(cfg.index_path)
             cfg.log(f"[index] loaded reference .idx "
                     f"({len(idx.seed_hashes)} seed changes, "
                     f"{len(idx.node_ids)} nodes)")
@@ -199,7 +200,8 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
                 extent_guard=cfg.extent_guard)
 
     if _npz_cache_usable(cfg, path):
-        return load_index(path), tree
+        with trace.span("index.read"):
+            return load_index(path), tree
     # a process group: only rank 0 builds the shared cache (save_index
     # publishes it with an atomic rename); the others poll for it and build
     # it themselves only on timeout (the same content, replaced atomically)
@@ -213,10 +215,18 @@ def ensure_index(cfg: PipelineConfig, tree: PanmanTree | None = None):
         deadline = time.time() + wait_s
         while time.time() < deadline:
             if _npz_cache_usable(cfg, path):
-                return load_index(path), tree
+                with trace.span("index.read"):
+                    return load_index(path), tree
             time.sleep(2.0)
         cfg.log(f"[index] process {pid}: cache did not appear; building "
                 f"locally")
+    with trace.span("index.build"):
+        return _build_index(cfg, tree, want, path)
+
+
+def _build_index(cfg: PipelineConfig, tree, want: dict, path: str):
+    """ensure_index's build: the tree (decoded here unless given), the
+    index from it, and its cache at ``path``."""
     if tree is None:
         tree = load_panman(cfg.panman)
     t0 = time.time()
@@ -280,6 +290,7 @@ def _get_placer(idx: IndexArrays, cfg: PipelineConfig, device):
     return TorchPlacer(idx, device, mesh=mesh)
 
 
+@trace.spanned("place.sketch")
 def read_sketch(cfg: PipelineConfig, idx):
     """The reads' placement sketch under the index's parameters (the
     sketch branches of panmap_tpu.pipeline.run_placement).  Returns
@@ -322,6 +333,8 @@ def read_sketch(cfg: PipelineConfig, idx):
                             .tolist()):
                 fh.write(f"{h}\t{c}\n")
         cfg.log(f"[place] wrote {path} ({len(sk.sorted_hashes)} seeds)")
+    trace.count("reads", len(seqs))
+    trace.count("seeds", len(sk.sorted_hashes))
     return sk, len(seqs)
 
 
@@ -382,7 +395,9 @@ def run_placement(cfg: PipelineConfig, idx, device, placer=None,
     fin = place_async(cfg, idx, sk, device, placer)
 
     def finish():
-        return _finish_placement(cfg, idx, fin(), n_reads)
+        res = fin()
+        with trace.span("place.write"):
+            return _finish_placement(cfg, idx, res, n_reads)
 
     return finish if _async else finish()
 
@@ -728,6 +743,7 @@ def _start_align_prefetch(cfg: PipelineConfig):
     return join
 
 
+@trace.spanned("align")
 def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
                   device, defer_bam: bool = False, prefetch=None,
                   stats=None):
@@ -746,8 +762,8 @@ def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
     carried LongReadAligner, TorchBatchAligner without a device), which
     gives the same records.  A ``stats`` dict
     receives the device stage's counters: the SW stage's (deferred,
-    device_scored, survivors) or the long DP's (items, device_dp, host_dp)
-    and its stage seconds."""
+    device_scored, survivors) or the long DP's (items, device_dp,
+    host_dp)."""
     ref = tree.get_string(best_node)
     ref_path = cfg.output + ".ref.fa"
     with open(ref_path, "w") as fh:
@@ -888,6 +904,7 @@ def run_alignment(cfg: PipelineConfig, tree: PanmanTree, best_node: str,
     return ref, placed
 
 
+@trace.spanned("genotype")
 def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
                    best_node: str, placed, device=None):
     """Call variants from the placed reads and write <out>.vcf.  The
@@ -913,8 +930,9 @@ def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
     else:
         records = pileup_call(ref, placed, baq=cfg.baq, spectrum=phred,
                               device_tally=dev_tally)
-    final = apply_spectrum(records, phred, cfg.min_depth, cfg.min_qual)
-    write_vcf(cfg.output + ".vcf", best_node, len(ref), final)
+    with trace.span("genotype.vcf"):
+        final = apply_spectrum(records, phred, cfg.min_depth, cfg.min_qual)
+        write_vcf(cfg.output + ".vcf", best_node, len(ref), final)
     cfg.log(f"[call] {len(final)} variants -> {cfg.output}.vcf")
     return final
 
@@ -988,10 +1006,23 @@ def _batch_host_stages(args):
     if scfg.stop != "align":
         final = run_genotyping(scfg, idx, ref, best_id, placed)
         if scfg.stop != "genotype":
-            run_consensus(scfg, ref, best_id, final)
+            with trace.span("consensus"):
+                run_consensus(scfg, ref, best_id, final)
     return prefix
 
 
+def _batch_worker(args):
+    """A forked worker's task: _batch_host_stages of (reads1, reads2,
+    prefix, best_id) in a "batch.worker" span under the parent's span
+    ``ctx`` (trace.here() there), and the spans the task recorded.
+    Returns (prefix, records)."""
+    *stage_args, ctx = args
+    with trace.resumed(ctx), trace.span("batch.worker"):
+        prefix = _batch_host_stages(tuple(stage_args))
+    return prefix, trace.take()
+
+
+@trace.spanned("run")
 def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
     """Batch placement (main.cpp:1464-1700 runBatchPlacement): the index and
     tree are loaded once and shared read-only across all samples.  Placement
@@ -1038,7 +1069,8 @@ def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
         return 0
     need_tree = cfg.stop not in ("index", "place")
     if need_tree and tree is None:
-        tree = load_panman(cfg.panman)
+        with trace.span("tree.load"):
+            tree = load_panman(cfg.panman)
 
     # pre-fork the host-stage pool BEFORE any device work so workers carry
     # no live device-client threads
@@ -1051,7 +1083,8 @@ def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
         if workers > 1:
             _BATCH_CTX.update(tree=tree, idx=idx, cfg=cfg)
             try:
-                pool = mp.get_context("fork").Pool(processes=workers)
+                with trace.span("batch.fork"):
+                    pool = mp.get_context("fork").Pool(processes=workers)
             except (OSError, ValueError):
                 pool = None
             if pool is not None:
@@ -1076,8 +1109,9 @@ def run_batch(cfg: PipelineConfig, device=None, idx=None, tree=None):
                                   pool, need_tree)
     finally:
         if pool is not None:
-            pool.close()
-            pool.join()
+            with trace.span("batch.join"):
+                pool.close()
+                pool.join()
         _BATCH_CTX.clear()
 
 
@@ -1129,15 +1163,16 @@ def _run_batch_samples(cfg, samples, idx, tree, device, placer, pool,
             if need_tree:
                 if pool is not None:
                     pending.append((i, prefix, best_id, pool.apply_async(
-                        _batch_host_stages,
-                        ((reads1, reads2, prefix, best_id),)), t0))
+                        _batch_worker, ((reads1, reads2, prefix, best_id,
+                                         trace.here()),)), t0))
                     return
                 ref, placed = run_alignment(scfg, tree, best_id, device)
                 if cfg.stop != "align":
                     final = run_genotyping(scfg, idx, ref, best_id, placed,
                                            device)
                     if cfg.stop != "genotype":
-                        run_consensus(scfg, ref, best_id, final)
+                        with trace.span("consensus"):
+                            run_consensus(scfg, ref, best_id, final)
             cfg.log(f"[{i}/{len(samples)}] {prefix} -> {best_id} "
                     f"({time.time()-t0:.1f}s)")
             n_ok += 1
@@ -1146,15 +1181,20 @@ def _run_batch_samples(cfg, samples, idx, tree, device, placer, pool,
             n_fail += 1
 
     for i, sample in enumerate(samples, 1):
-        entry = _dispatch(i, sample)
+        with trace.span("batch.sample", sample=i):
+            entry = _dispatch(i, sample)
         if inflight is not None:
-            _resolve(inflight)
+            with trace.span("batch.sample", sample=inflight[0]):
+                _resolve(inflight)
         inflight = entry
     if inflight is not None:
-        _resolve(inflight)
+        with trace.span("batch.sample", sample=inflight[0]):
+            _resolve(inflight)
     for i, prefix, best_id, ar, t0 in pending:
         try:
-            ar.get()
+            with trace.span("batch.wait", sample=i):
+                _, records = ar.get()
+            trace.adopt(records)
             cfg.log(f"[{i}/{len(samples)}] {prefix} -> {best_id} "
                     f"({time.time()-t0:.1f}s)")
             n_ok += 1
@@ -1171,27 +1211,19 @@ def run_pipeline(cfg: PipelineConfig, device=None):
     parity tests).  With cfg.profile_dir the run is traced by
     torch.profiler (host ops, and the card's kernels on a CUDA host) and
     the trace written into that directory (TensorBoard's trace format)."""
-    if not cfg.profile_dir:
+    with trace.profiled(cfg.profile_dir, cfg.log):
         return _run_pipeline_inner(cfg, device)
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    try:
-        with profile(activities=acts, acc_events=True,
-                     on_trace_ready=tensorboard_trace_handler(
-                         cfg.profile_dir)):
-            return _run_pipeline_inner(cfg, device)
-    finally:
-        cfg.log(f"[profile] trace written to {cfg.profile_dir}")
 
 
 def _run_pipeline_inner(cfg: PipelineConfig, device=None):
     if cfg.batch_file:
         return run_batch(cfg, device)
+    return _run_sample(cfg, device)
+
+
+@trace.spanned("run")
+def _run_sample(cfg: PipelineConfig, device):
+    """The single-sample stages."""
     device = as_device(device)
     native.require_lib()  # a failed build raises here, not a silent slow path
     tree = None
@@ -1212,11 +1244,13 @@ def _run_pipeline_inner(cfg: PipelineConfig, device=None):
     if tree is None and cfg.stop != "place":
         def _load():
             try:
-                tree_box["tree"] = load_panman(cfg.panman)
+                with trace.span("tree.load"):
+                    tree_box["tree"] = load_panman(cfg.panman)
             except Exception as exc:  # re-raised by the joining thread
                 tree_box["err"] = exc
 
-        tree_thread = threading.Thread(target=_load, daemon=True)
+        tree_thread = threading.Thread(target=trace.carry(_load),
+                                       daemon=True)
         tree_thread.start()
     align_prefetch = None
     if cfg.stop != "place" and not cfg.refine:
@@ -1254,12 +1288,15 @@ def _run_pipeline_inner(cfg: PipelineConfig, device=None):
                                           defer_bam=True,
                                           prefetch=align_prefetch)
     if cfg.stop == "align":
-        bam_join()
+        with trace.span("align.bam_wait"):
+            bam_join()
         return
     try:
         final = run_genotyping(cfg, idx, ref, best_id, placed, device)
     finally:
-        bam_join()  # never leave the writer thread orphaned on an error
+        with trace.span("align.bam_wait"):
+            bam_join()  # never leave the writer thread orphaned on an error
     if cfg.stop == "genotype":
         return
-    run_consensus(cfg, ref, best_id, final)
+    with trace.span("consensus"):
+        run_consensus(cfg, ref, best_id, final)

@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..index.builder import IndexArrays
 from ..native import join_u64_native, sketch_count_native
 from ..parallel.mesh import sharded_score
@@ -138,14 +139,16 @@ class TorchPlacer:
         if mesh is not None and mesh.devices[0] != self.device:
             raise ValueError(f"the mesh's partials reduce on "
                              f"{mesh.devices[0]}, not on {self.device}")
-        self.dev = dev if dev is not None else prepare_device_index(
-            idx, self.device, mesh)
         self.params = idx.params
         self.pad_len = ((pad_len + 7) // 8) * 8
         self.batch = batch
         self.hp = np.array(homopolymer_hashes(self.params.k), dtype=np.uint64)
         self._elig = None
         self._keys = None
+        with trace.span("place.upload", rows=len(idx.seed_hashes)):
+            self.dev = dev if dev is not None else prepare_device_index(
+                idx, self.device, mesh)
+            self._ensure_elig()
 
     def _ensure_elig(self):
         """(all nodes, leaves only) eligibility masks on the device."""
@@ -559,6 +562,7 @@ class TorchPlacer:
         f64 host engine)."""
         return self.place_exact_async(sk, force_leaf)()
 
+    @trace.spanned("place.select")
     def place_exact_async(self, sk, force_leaf: bool = False):
         """Host prep + enqueue of the device selection program; returns a
         zero-arg finisher that waits on the device result and completes the
@@ -610,10 +614,17 @@ class TorchPlacer:
 
     def _place_exact_finish(self, sk, cand, col32, zero_metric):
         """Back half of place_exact: device fetch + exact f64 rescue + guards
-        (host numpy carried over line for line from
-        TpuPlacer._place_exact_finish)."""
-        col32 = col32.double().cpu().numpy()  # [n_nodes, 5], -inf inelig
-        cand = cand.cpu().numpy().copy()
+        (TpuPlacer._place_exact_finish)."""
+        with trace.span("place.fetch"):
+            col32 = col32.double().cpu().numpy()  # [n_nodes, 5], -inf inelig
+            cand = cand.cpu().numpy().copy()
+        with trace.span("place.rescue"):
+            return self._rescue(sk, cand, col32, zero_metric)
+
+    def _rescue(self, sk, cand, col32, zero_metric):
+        """The exact f64 rescue of the fetched candidates and its guards
+        (host numpy carried over line for line); counts the candidates and
+        witnesses on the span open."""
         cand[:, zero_metric] = False  # identically-zero columns: no rescue
         union = np.flatnonzero(cand.any(axis=1))
         if len(union) > 16384:
@@ -637,6 +648,8 @@ class TorchPlacer:
         witnesses = (np.unique(np.concatenate(wit_m)) if any(
             len(w) for w in wit_m) else np.empty(0, np.int64))
         witnesses = witnesses[~np.isin(witnesses, union)]
+        trace.count("candidates", len(union))
+        trace.count("witnesses", len(witnesses))
         allnodes = np.concatenate([union, witnesses]).astype(np.int64)
         exact = rescore_paths(self.idx, sk, allnodes)  # f64 [len, 5]
         rank = {int(n): i for i, n in enumerate(allnodes)}

@@ -1,0 +1,10 @@
+"""meta.collapse_s: seconds a sample spends in the program's "meta.collapse"
+span, the meta scorer's tree collapse (MetaScorer) (its records summed over
+the traced window and divided by its samples; None where the program keeps
+no such record)."""
+
+from pmbench import program
+
+
+def read(trace):
+    return program.per_sample_s(trace, "meta.collapse")

@@ -25,6 +25,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from panmap_tpu.meta import driver as hd
 from panmap_tpu.meta.engine import PROP_THRESHOLD_TO_REMOVE, MetaScorer
@@ -33,7 +34,7 @@ from panmap_tpu.meta.engine import run_squarem as jax_run_squarem
 from panmap_tpu.meta.engine_tpu import TpuMetaScorer
 from panmap_tpu_torch.meta.index import save_meta_index
 from panmap_tpu.native import get_lib
-from panmap_tpu_torch import convert
+from panmap_tpu_torch import convert, trace
 from panmap_tpu_torch.__main__ import main as torch_main
 from panmap_tpu_torch.meta import driver as td
 from panmap_tpu_torch.meta import em
@@ -395,12 +396,14 @@ def test_run_meta_matches_jax_package(tmp_path, big, route):
                               log=lambda m, *a, **k: lines.append(m), **opts)
 
     assert hd.run_meta(cfg(hd, "jax"), midx=jax_meta_index(w.midx)) == 0
-    stats = {}
-    assert td.run_meta(cfg(td, "torch"), midx=w.midx, device=CPU,
-                       stats=stats) == 0
-    assert stats["route"] == ("device" if route in ("device", "em_f64")
-                              else "host")
-    assert (stats["R"] >= 2000) == (route != "host")
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert td.run_meta(cfg(td, "torch"), midx=w.midx, device=CPU) == 0
+    spans = {r["name"]: r["counts"] for r in trace.take()}
+    device = spans["meta.score"]["device"]
+    assert ("device" if device else "host") == (
+        "device" if route in ("device", "em_f64") else "host")
+    assert (spans["meta.sketch"]["read_sets"] >= 2000) == (route != "host")
     got = _same_abundance(str(tmp_path / "jax.mgsr.abundance.out"),
                           str(tmp_path / "torch.mgsr.abundance.out"))
     named = set().union(*got)

@@ -158,6 +158,8 @@ def test_profile_writes_a_trace_and_leaves_the_outputs(tmp_path,
     with open(tmp_path / "trace" / traces[0]) as fh:
         trace = fh.read()
     assert '"traceEvents"' in trace and "aten::" in trace
+    # the port's own spans, on the profiler's clock
+    assert '"panmap:place.sketch"' in trace and '"panmap:genotype"' in trace
     assert lines.count(f"[profile] trace written to {tmp_path / 'trace'}") \
         == 1
 

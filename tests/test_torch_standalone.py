@@ -170,11 +170,17 @@ save_meta_index(midx_path, mw.midx)
 rc = main([panman, mw.reads1, mw.reads2, "--meta", "-i", midx_path,
            "-o", os.path.join(out, "meta"), "-q"])
 assert rc == 0, rc
-mstats = {}
-md.run_meta(md.MetaConfig(panman=panman, reads1=mw.reads1, reads2=mw.reads2,
-                          output=os.path.join(out, "meta2"),
-                          log=lambda *a, **k: None),
-            midx=mw.midx, device=cpu, stats=mstats)
+from panmap_tpu_torch import trace
+from torch.profiler import ProfilerActivity, profile
+
+trace.take()
+with profile(activities=[ProfilerActivity.CPU]):
+    md.run_meta(md.MetaConfig(panman=panman, reads1=mw.reads1,
+                              reads2=mw.reads2,
+                              output=os.path.join(out, "meta2"),
+                              log=lambda *a, **k: None),
+                midx=mw.midx, device=cpu)
+scored = [r for r in trace.take() if r["name"] == "meta.score"]
 
 # the CLI with --meta --filter-and-assign, demo 3's options, on the batched
 # scorer's route (>= 2,000 unique read sets)
@@ -212,7 +218,8 @@ print(json.dumps({"bad": bad, "n_modules": len(mods),
                   "long_outputs": sorted(os.listdir(lout)),
                   "long_device_dp": stats["device_dp"],
                   "oversized": len(arrays["extra_cigars"]),
-                  "meta_route": mstats["route"],
+                  "meta_route": ("device" if scored[0]["counts"]["device"]
+                                 else "host"),
                   "native": native.get_lib() is not None}))
 """
 
@@ -317,8 +324,8 @@ DIFFERS = {
             "the device type (or None without a device), not the Pallas "
             "mode of a JAX backend",
         "TorchBatchAligner._start_deferred":
-            "launches the port's banded-SW kernel; no shape tiers, no "
-            "breakevens, no fallback when the device fails",
+            "an align.sw span; launches the port's banded-SW kernel; no "
+            "shape tiers, no breakevens, no fallback when the device fails",
     },
     "align/longread.py": {
         "LongReadAligner.align_batch":
@@ -333,10 +340,11 @@ DIFFERS = {
                                 "int32 sums, no pow2 buckets and no program "
                                 "cache",
         "_pileup_finish": "device_tally is the device (None: host), passed "
-                          "on to tally_columns_device",
+                          "on to tally_columns_device; genotype.columns, "
+                          ".snps and .indels spans",
         "pileup_call": "device_tally is a device or None, not a bool",
         "pileup_call_columnar": "device_tally is a device or None, not a "
-                                "bool",
+                                "bool; a genotype.columns span",
     },
     "meta/assign.py": {
         name: "takes the device: the fast route's batched scorer is "
@@ -348,33 +356,40 @@ DIFFERS = {
                        "device dispatch are meta/em.py's",
     },
     "meta/driver.py": {
-        "run_meta": "the port's own driver (torch scorer and EM, staged)",
+        "run_meta": "the port's own driver (torch scorer and EM, staged), "
+                    "a run span",
         "_resolve_meta_mesh": "counts the run's CUDA cards and builds a "
                               "parallel.mesh.Mesh, not a jax Mesh",
     },
     "pipeline.py": {
         "PipelineConfig": "profile_dir's comment names torch.profiler",
         "ensure_index": "the ranks' wait for rank 0's index reads the "
-                        "port's process group; no _cache_usable closure",
+                        "port's process group; no _cache_usable closure; "
+                        "index.read and index.build spans, the build in "
+                        "_build_index",
         "_resolve_mesh": "counts the run's CUDA cards and builds a "
                          "parallel.mesh.Mesh, not a jax Mesh",
         "_get_placer": "a TorchPlacer on the device or its mesh; no "
                        "process-wide cache (batch mode holds one placer)",
         "run_placement": "TorchPlacer instead of the jax placer, no race "
-                         "with a remote link",
+                         "with a remote link; a place.write span",
         "run_alignment": "takes the device; TorchBatchAligner and "
                          "TorchLongReadAligner run the device stages; a "
-                         "missing native library raises",
+                         "missing native library raises; an align span",
         "run_pipeline": "takes the device; --profile is torch.profiler's "
-                        "trace",
+                        "trace (trace.profiled)",
         "_run_pipeline_inner": "the port's stage runner (no remote-link "
-                               "policy, no backend warm-up)",
-        "run_genotyping": "takes the device and passes it to the tally",
+                               "policy, no backend warm-up); the single "
+                               "sample is _run_sample, a run span",
+        "run_genotyping": "takes the device and passes it to the tally; "
+                          "genotype and genotype.vcf spans",
         "_batch_host_stages": "passes no device down (host DP, host tally) "
-                              "instead of setting PANMAP_PALLAS=0",
+                              "instead of setting PANMAP_PALLAS=0; a "
+                              "consensus span",
         "run_batch": "one TorchPlacer for the run, the device and an "
                      "in-memory index / tree as arguments, no backend "
-                     "warm-up; its loop is _run_batch_samples",
+                     "warm-up; a run span; its loop is "
+                     "_run_batch_samples",
     },
     "__main__.py": {
         "main": "the port's entry: joins a torch.distributed group "
