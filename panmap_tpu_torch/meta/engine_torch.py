@@ -9,15 +9,18 @@ into a bitmap P[(orientation, uid), node] by a scatter-add and a prefix sum
 (presence_chunk); a read block's scores over the chunk are row gathers of P
 at its slotted seedmer keys summed over the slots (score_block).
 
-The host prep is carried over from TpuMetaScorer.__init__ (its module
-imports jax at the top, so it cannot be imported here); what existed only
-for the TPU link or XLA recompiles is left out: the mesh, the pow2 padding
-of events, bitmap rows, read rows and slots, the chunk groups with their
-3 GB cap, the 512-wide candidate tiles and col_map, and the u32
-bit-packing of P (it cut
-TPU HBM gather traffic; PERF.md holds the H100 profile that would decide
-on it).  All device arithmetic is integer, so every result is bit-equal to
-TpuMetaScorer's and to the host scorer MetaScorer.score_all.
+The build runs as torch ops where the scorer runs: the host uploads the
+index's delta rows, seed table and tree intervals and the reads'
+concatenated seedmers once (meta_inputs), and the flip events
+(presence_events_torch, the twin of events.presence_events), the event
+order, the read key slots and the chunk carries are sorts, cumsums,
+searches and scatters over them.  What TpuMetaScorer had only for the TPU
+link or XLA recompiles is left out: the pow2 padding of events, bitmap
+rows, read rows and slots, the chunk groups with their 3 GB cap, the
+512-wide candidate tiles and col_map, and the u32 bit-packing of P (it
+cut TPU HBM gather traffic; PERF.md holds the H100 profile that would
+decide on it).  All of it is integer arithmetic, so every result is
+bit-equal to TpuMetaScorer's and to the host scorer MetaScorer.score_all.
 
 sketch_meta_reads_batch is the JAX package's batched read sketch for the
 meta path (the device scan of sketch/tpu.py per chunk of reads, identical
@@ -30,12 +33,9 @@ import numpy as np
 import torch
 
 from .. import trace
-from .events import (
-    overlap_coefficients_from_events,
-    presence_events,
-)
+from .events import euler_intervals
 from ..sketch.tpu import (encode_reads_batch, kminmer_batch_full,
-                          syncmer_scan_batch)
+                          syncmer_scan_batch, u64_key)
 from ..utils.device import as_device
 from .engine import MetaRead, dust_score
 
@@ -103,6 +103,128 @@ def sketch_meta_reads_batch(seqs: list, k: int, s: int, t: int, l: int,
     return reads, dup_index, n_dust
 
 
+def meta_inputs(midx, reads: list) -> dict:
+    """The host arrays the scorer's build starts from, each in the dtype it
+    is uploaded in: the index's delta rows (seed id, deletion flag), its
+    seed table (u64 hash as int64 bits, orientation), the node offsets of
+    the delta rows and each node's last preorder position under it; the
+    reads' seedmer occurrences concatenated (hash bits, orientation) with
+    each read's count."""
+    _, euler_out = euler_intervals(midx.parent_index.astype(np.int64))
+    return dict(
+        delta_seed=np.asarray(midx.delta_seed, dtype=np.int32),
+        delta_is_del=np.asarray(midx.delta_is_del, dtype=bool),
+        seed_hash=np.asarray(midx.seed_hash, dtype=np.uint64).view(np.int64),
+        seed_rev=np.asarray(midx.seed_rev, dtype=bool),
+        node_offsets=np.asarray(midx.node_offsets, dtype=np.int64),
+        euler_out=euler_out,
+        occ_hash=(np.concatenate([r.hashes for r in reads]) if reads
+                  else np.empty(0, np.uint64)).astype(
+                      np.uint64, copy=False).view(np.int64),
+        occ_rev=(np.concatenate([r.revs for r in reads]) if reads
+                 else np.empty(0, bool)).astype(bool, copy=False),
+        nseeds=np.fromiter((len(r.hashes) for r in reads), np.int64,
+                           len(reads)))
+
+
+def presence_events_torch(t: dict):
+    """Device twin of events.presence_events over meta_inputs' tensors
+    ``t``, with the read hashes the scorer keeps: those of the reads that
+    the index holds.  Returns (read_hashes int64 [U], the u64 bits in
+    ascending u64 order; occ_uid int64, each occurrence's index in them or
+    -1; the event dict, presence_events' keys and order).
+
+    Each delta row makes two +-1 steps of its (hash, orientation): at its
+    node's preorder position and, undone, after the node's subtree.  One
+    sort by (hash group, position), the group being the hash's rank among
+    the index's u64 hashes, replaces the host's unique + lexsort.  A
+    group's steps sum to zero in each orientation, so the plain cumsum is
+    the group's own count at every step, and zero after its last; the
+    state after the last step of each (group, position) run against the
+    run before it gives the flips.  Order within a run does not matter:
+    only run ends are read."""
+    dev = t["delta_seed"].device
+    idx_keys, seed_gid = torch.unique(u64_key(t["seed_hash"]),
+                                      return_inverse=True)
+    read_u, occ_inv = torch.unique(u64_key(t["occ_hash"]),
+                                   return_inverse=True)
+    if len(idx_keys):
+        ii = torch.searchsorted(idx_keys, read_u).clamp_(max=len(idx_keys) - 1)
+        found = idx_keys[ii] == read_u
+    else:
+        ii = torch.zeros_like(read_u)
+        found = torch.zeros(len(read_u), dtype=torch.bool, device=dev)
+    read_keys = read_u[found]
+    U = len(read_keys)
+    uid_of = torch.cumsum(found, 0) - 1
+    occ_uid = torch.where(found, uid_of, -1)[occ_inv]
+    # uid of each index hash group, -1 where no read holds it
+    g_uid = torch.full((len(idx_keys),), -1, dtype=torch.int64, device=dev)
+    g_uid[ii[found]] = torch.arange(U, device=dev)
+    read_hashes = u64_key(read_keys)
+
+    D = len(t["delta_seed"])
+    n = len(t["node_offsets"]) - 1
+    if D == 0:
+        e = torch.empty(0, dtype=torch.int64, device=dev)
+        i8 = e.to(torch.int8)
+        return read_hashes, occ_uid, dict(
+            ev_node=e, ev_uid=e, ev_rev=e.bool(), ev_delta=i8,
+            den_node=e, den_delta=i8, ov_node=e, ov_delta=i8)
+    row_node = torch.repeat_interleave(
+        torch.arange(n, device=dev), torch.diff(t["node_offsets"]),
+        output_size=D)
+    sid = t["delta_seed"].long()
+    gid = seed_gid[sid]
+    W = n + 1  # positions run 0..n (the undo after the last subtree)
+    key = torch.cat([gid * W + row_node,
+                     gid * W + t["euler_out"][row_node] + 1])
+    del row_node
+    key, order = torch.sort(key)
+    row = order % D
+    rv = t["seed_rev"][sid][row]
+    s = torch.where(t["delta_is_del"][row] != (order >= D), -1, 1).to(
+        torch.int32)
+    del order, row, sid, gid
+    c_fwd = torch.cumsum(torch.where(rv, 0, s), 0, dtype=torch.int32)
+    c_rev = torch.cumsum(torch.where(rv, s, 0), 0, dtype=torch.int32)
+    del rv, s
+    last = torch.ones(len(key), dtype=torch.bool, device=dev)
+    last[:-1] = key[1:] != key[:-1]
+    lk = key[last]
+    lc_fwd, lc_rev = c_fwd[last], c_rev[last]
+    lfwd, lrev, lany = lc_fwd > 0, lc_rev > 0, (lc_fwd + lc_rev) > 0
+    del key, c_fwd, c_rev, last, lc_fwd, lc_rev
+    lg = lk // W
+    lp = lk - lg * W
+
+    def prev(x):
+        """The state before each run: the previous run's, absent at a
+        group's first, as the last run of every group ends at zero."""
+        p = torch.zeros_like(x)
+        p[1:] = x[:-1]
+        return p
+
+    uid = g_uid[lg]
+    rel = uid >= 0
+    out = {k: [] for k in ("ev_node", "ev_uid", "ev_rev", "ev_delta")}
+    for orient, cur in ((False, lfwd), (True, lrev)):
+        m = (cur != prev(cur)) & rel
+        node = lp[m]
+        out["ev_node"].append(node)
+        out["ev_uid"].append(uid[m])
+        out["ev_rev"].append(torch.full_like(node, orient, dtype=torch.bool))
+        out["ev_delta"].append(torch.where(cur[m], 1, -1).to(torch.int8))
+    ev = {k: torch.cat(v) for k, v in out.items()}
+    ma = lany != prev(lany)
+    mo = ma & rel
+    ev.update(den_node=lp[ma],
+              den_delta=torch.where(lany[ma], 1, -1).to(torch.int8),
+              ov_node=lp[mo],
+              ov_delta=torch.where(lany[mo], 1, -1).to(torch.int8))
+    return read_hashes, occ_uid, ev
+
+
 def presence_chunk(carry: torch.Tensor, ev_key: torch.Tensor,
                    ev_col: torch.Tensor, ev_delta: torch.Tensor, n_rows: int,
                    C: int) -> torch.Tensor:
@@ -141,8 +263,9 @@ def score_block(P: torch.Tensor, fwd_key: torch.Tensor, rev_key: torch.Tensor,
 
 class TorchMetaScorer:
     """score_all twin of MetaScorer over chunked presence bitmaps on
-    ``device``: the event and key tensors are uploaded once, then one loop
-    over node chunks x read blocks."""
+    ``device``: the raw inputs are uploaded once and the event, key and
+    carry tensors built there, then one loop over node chunks x read
+    blocks."""
 
     NODE_CHUNK = 2048
     READ_CHUNK = 4096
@@ -156,20 +279,21 @@ class TorchMetaScorer:
         self.mesh = mesh
         self.n_nodes = len(midx.node_ids)
 
+        devs = [self.device] if mesh is None else list(mesh.devices)
+
+        with trace.span("meta.upload") as sp:
+            # ONE copy of the raw inputs; everything else is built on the card
+            host = meta_inputs(midx, reads)
+            t = {k: torch.from_numpy(x).to(self.device)
+                 for k, x in host.items()}
+            sp.count("bytes", sum(x.nbytes for x in t.values()))
+
         with trace.span("meta.events") as sp:
-            all_h = (np.concatenate([r.hashes for r in reads])
-                     if reads else np.empty(0, np.uint64))
-            uniq_h = np.unique(all_h)
             # only hashes that exist somewhere in the INDEX can ever flip
             # presence; error seedmers get no P row and map to the dummy row
-            idx_h = np.unique(np.asarray(midx.seed_hash, dtype=np.uint64))
-            if len(idx_h) and len(uniq_h):
-                ii = np.minimum(np.searchsorted(idx_h, uniq_h), len(idx_h) - 1)
-                self.read_hashes = uniq_h[idx_h[ii] == uniq_h]
-            else:
-                self.read_hashes = uniq_h[:0]
-            self.ev = presence_events(midx, self.read_hashes)
-            U = len(self.read_hashes)
+            read_hashes, occ_uid, ev = presence_events_torch(t)
+            self.read_hashes = read_hashes.cpu().numpy().view(np.uint64)
+            U = len(read_hashes)
             self.U = U
             # P row layout: [fwd uid rows | rev uid rows | one zero dummy row]
             self.n_rows = 2 * U + 1
@@ -180,110 +304,112 @@ class TorchMetaScorer:
             while C > 32 and self.n_rows * C >= (1 << 31):
                 C //= 2
             self.NODE_CHUNK = C
+            # overlap coefficients: prefix sums of the any-hash (den) and the
+            # any-orientation (ov) flips over the preorder positions, then
+            # events.overlap_coefficients_from_events' float64 division
+            den, ov = (torch.zeros(self.n_nodes + 2, dtype=torch.int64,
+                                   device=self.device).index_add_(
+                0, ev[f"{x}_node"], ev[f"{x}_delta"].long())
+                .cumsum(0)[:self.n_nodes] for x in ("den", "ov"))
+            self._oc = torch.where(
+                den > 0, ov.double() / den.clamp(min=1).double(),
+                0.0).cpu().numpy()
+            del read_hashes, den, ov
             sp.count("read_hashes", U)
-            sp.count("events", len(self.ev["ev_node"]))
+            sp.count("events", len(ev["ev_node"]))
+            sp.count("steps", 2 * len(t["delta_seed"]))
 
         with trace.span("meta.keys"):
-            # flip events sorted by preorder position, keyed by (orient, uid)
-            ev = self.ev
-            key = (np.where(ev["ev_rev"], U, 0)
-                   + ev["ev_uid"]).astype(np.int64)
-            order = np.argsort(ev["ev_node"], kind="stable")
-            self._evp_pos = ev["ev_node"][order].astype(np.int64)
-            self._evp_key = key[order]
-            self._evp_delta = ev["ev_delta"][order].astype(np.int32)
+            # flip events sorted by preorder position, keyed by (orient, uid):
+            # the key is unique within a position, so one sort of
+            # (position, key) gives the stable order by position with the
+            # fwd flips before the rev ones, uids ascending
+            key = torch.where(ev["ev_rev"], U, 0) + ev["ev_uid"]
+            pk, order = torch.sort(ev["ev_node"] * self.n_rows + key)
+            self._evp_pos = pk // self.n_rows
+            self._evp_key = pk - self._evp_pos * self.n_rows
+            self._evp_delta = ev["ev_delta"][order].to(torch.int32)
             self.ev_pos = self._evp_pos
+            del ev, key, pk, order
 
             # each read gets S key slots (S = its most seedmers); scoring is a
             # row gather of P plus a sum over the slot axis
             R = len(reads)
-            nseeds = np.array([len(r.hashes) for r in reads], dtype=np.int64)
-            if U:
-                occ_pos = np.minimum(np.searchsorted(self.read_hashes, all_h),
-                                     U - 1)
-                occ_found = self.read_hashes[occ_pos] == all_h
-            else:
-                occ_pos = np.zeros(len(all_h), dtype=np.int64)
-                occ_found = np.zeros(len(all_h), dtype=bool)
-            occ_uid = occ_pos.astype(np.int64)
-            occ_rev = (np.concatenate([np.asarray(r.revs, dtype=bool)
-                                       for r in reads])
-                       if reads else np.empty(0, bool))
-            S = max(int(nseeds.max()) if R else 1, 1)
+            nseeds = t["nseeds"]
+            S = max(int(host["nseeds"].max()) if R else 1, 1)
             self.n_slots = S
             dummy = self.n_rows - 1  # the all-zero P row
-            fwd_sl = np.full((R, S), dummy, dtype=np.int32)
-            rev_sl = np.full((R, S), dummy, dtype=np.int32)
-            row_of = np.repeat(np.arange(R, dtype=np.int64), nseeds)
-            slot_of = (np.arange(len(occ_uid), dtype=np.int64)
-                       - np.repeat(np.cumsum(nseeds) - nseeds, nseeds))
-            fwd_sl[row_of, slot_of] = np.where(
-                ~occ_found, dummy,
-                np.where(occ_rev, U + occ_uid, occ_uid))
-            rev_sl[row_of, slot_of] = np.where(
-                ~occ_found, dummy,
-                np.where(occ_rev, occ_uid, U + occ_uid))
-            self.fwd_keys = fwd_sl
-            self.rev_keys = rev_sl
-
-            # per-node-chunk carry-in presence state (flips with pos <
-            # chunk lo)
-            self._chunk_lo = list(range(0, self.n_nodes + 1, C))
-            self._carries = []
-            state = np.zeros(self.n_rows, dtype=np.int32)
-            prev = 0
-            for lo in self._chunk_lo:
-                cut = np.searchsorted(self._evp_pos, lo)
-                np.add.at(state, self._evp_key[prev:cut],
-                          self._evp_delta[prev:cut])
-                prev = cut
-                self._carries.append(state.copy())
-            self._ev_bounds = np.searchsorted(
-                self._evp_pos, self._chunk_lo + [self.n_nodes + 1])
-            ev_col = self._evp_pos - np.repeat(
-                np.asarray(self._chunk_lo, np.int64), np.diff(self._ev_bounds))
-            self.n_chunks = len(self._chunk_lo)
-            # scores are <= S: int16 snapshots unless a read has more seedmers
-            self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
-
-        with trace.span("meta.upload") as sp:
-            # ONE upload of everything the chunk loop reads: the events and
-            # carries to every distinct device, the reads' keys to their shard
-            ev_host = (self._evp_key, ev_col, self._evp_delta,
-                       np.stack(self._carries))
-            devs = [self.device] if mesh is None else list(mesh.devices)
-            self._ev_on = {d: tuple(torch.from_numpy(x).to(d) for x in ev_host)
-                           for d in dict.fromkeys(devs)}
-            if mesh is None:
-                self._fwd_t = torch.from_numpy(fwd_sl).to(self.device)
-                self._rev_t = torch.from_numpy(rev_sl).to(self.device)
-                self._shards = [(self.device, self._fwd_t, self._rev_t)]
-            else:
-                # inert blocks: every slot on the all-zero dummy row
+            # a mesh's shards take equal numbers of whole read blocks, padded
+            # with inert rows (every slot on the dummy row)
+            rpad = R
+            if mesh is not None:
                 B, nd = self.READ_CHUNK, len(devs)
                 nb = max(-(-R // B), 1)
                 rpad = -(-nb // nd) * nd * B
-                keys = [np.concatenate([x, np.full((rpad - R, S), dummy,
-                                                   np.int32)])
-                        for x in (fwd_sl, rev_sl)]
-                per = rpad // nd
+            occ_rev = t["occ_rev"]
+            starts = torch.cumsum(nseeds, 0) - nseeds
+            flat = torch.arange(len(occ_uid), device=self.device) + (
+                torch.repeat_interleave(
+                    torch.arange(R, device=self.device) * S - starts, nseeds,
+                    output_size=len(occ_uid)))
+            keys = []
+            for on_rev in (occ_rev, ~occ_rev):  # fwd slots, then rev slots
+                sl = torch.full((rpad * S,), dummy, dtype=torch.int32,
+                                device=self.device)
+                sl[flat] = torch.where(
+                    occ_uid < 0, dummy,
+                    torch.where(on_rev, U + occ_uid, occ_uid)).to(torch.int32)
+                keys.append(sl.view(rpad, S))
+            del host, t, nseeds, occ_uid, occ_rev, starts, flat
+
+            # per-node-chunk carry-in presence state (flips with pos < chunk
+            # lo): each event added to the row of the chunk after its own,
+            # then a prefix sum over the chunks
+            self._chunk_lo = list(range(0, self.n_nodes + 1, C))
+            self.n_chunks = len(self._chunk_lo)
+            after = self._evp_pos // C + 1
+            inner = after < self.n_chunks
+            plane = torch.zeros(self.n_chunks * self.n_rows, dtype=torch.int32,
+                                device=self.device)
+            plane.index_add_(0, (after * self.n_rows + self._evp_key)[inner],
+                             self._evp_delta[inner])
+            self._carries = torch.cumsum(
+                plane.view(self.n_chunks, self.n_rows), 0, dtype=torch.int32)
+            del after, inner, plane
+            self._ev_bounds = torch.searchsorted(
+                self._evp_pos, torch.tensor(
+                    self._chunk_lo + [self.n_nodes + 1],
+                    device=self.device)).cpu().numpy()
+            # scores are <= S: int16 snapshots unless a read has more seedmers
+            self.snap_dtype = torch.int16 if S < (1 << 15) else torch.int32
+
+            # a mesh's other devices get copies of the events and carries,
+            # and each shard its slice of the key slots
+            ev_dev = (self._evp_key, self._evp_pos, self._evp_delta,
+                      self._carries)
+            self._ev_on = {d: ev_dev if d == self.device
+                           else tuple(x.to(d) for x in ev_dev)
+                           for d in dict.fromkeys(devs)}
+            if mesh is None:
+                self._fwd_t, self._rev_t = keys
+                self._shards = [(self.device, *keys)]
+            else:
+                per = rpad // len(devs)
                 self._shards = [
-                    (d, *(torch.from_numpy(x[i * per:(i + 1) * per]).to(d)
-                          for x in keys)) for i, d in enumerate(devs)]
-            sp.count("bytes", sum(t.nbytes for ts in self._ev_on.values()
-                                  for t in ts)
-                     + sum(t.nbytes for _, *ts in self._shards for t in ts))
+                    (d, *(x[i * per:(i + 1) * per].to(d) for x in keys))
+                    for i, d in enumerate(devs)]
 
     def overlap_coefficients(self) -> np.ndarray:
         """OC per dfs index as prefix sums of the presence events."""
-        return overlap_coefficients_from_events(self.ev, self.n_nodes)
+        return self._oc.copy()
 
     def presence(self, ci: int, device=None) -> torch.Tensor:
         """Presence bitmap of node chunk ci on ``device`` (default: the
         scorer's): uint8 [n_rows, NODE_CHUNK]."""
-        key, col, delta, carries = self._ev_on[device or self.device]
+        key, pos, delta, carries = self._ev_on[device or self.device]
         a, b = self._ev_bounds[ci], self._ev_bounds[ci + 1]
-        return presence_chunk(carries[ci], key[a:b], col[a:b], delta[a:b],
+        return presence_chunk(carries[ci], key[a:b],
+                              pos[a:b] - self._chunk_lo[ci], delta[a:b],
                               self.n_rows, self.NODE_CHUNK)
 
     def score_chunk(self, ci: int, ms: list, snap: list, cand: np.ndarray):

@@ -43,8 +43,14 @@ from panmap_tpu_torch.meta.engine import MetaScorer as PortMetaScorer
 from panmap_tpu_torch.meta.engine import run_squarem as port_f64_squarem
 from panmap_tpu_torch.meta.engine_torch import (
     TorchMetaScorer,
+    meta_inputs,
     presence_chunk,
+    presence_events_torch,
     score_block,
+)
+from panmap_tpu_torch.meta.events import (
+    overlap_coefficients_from_events,
+    presence_events,
 )
 from panmap_tpu_torch.synthetic import make_meta_workload
 from test_meta_em import _synthetic
@@ -110,23 +116,24 @@ def test_host_prep_equals_tpu_scorer(scored):
     assert pt.U == jx.U and pt.n_rows == 2 * pt.U + 1 < jx.n_rows
     assert np.array_equal(pt.read_hashes, jx.read_hashes)
     rows, lut = _tpu_rows(pt, jx), _port_row_of(pt, jx)
-    assert np.array_equal(pt._evp_key, lut[jx._evp_key])
+    assert np.array_equal(pt._evp_key.cpu().numpy(), lut[jx._evp_key])
     for a, b in ((pt._evp_pos, jx._evp_pos), (pt._evp_delta, jx._evp_delta)):
-        assert np.array_equal(a, b)
+        assert np.array_equal(a.cpu().numpy(), b)
     assert pt._chunk_lo == jx._chunk_lo
-    for mine, theirs in zip(pt._carries, jx._carries):
+    assert len(pt._carries) == len(jx._carries)
+    for mine, theirs in zip(pt._carries.cpu().numpy(), jx._carries):
         assert np.array_equal(mine, theirs[rows])
         assert not theirs[lut < 0].any()
     # TpuMetaScorer pads reads to 4,096-row blocks and slots to a power of
     # two: its extra rows and slots all point at the dummy row
     R, S = len(reads), pt.n_slots
     dummy = pt.n_rows - 1
-    for mine, dev in ((pt.fwd_keys, jx._occ_fwd_dev),
-                      (pt.rev_keys, jx._occ_rev_dev)):
+    for mine, dev in ((pt._fwd_t, jx._occ_fwd_dev),
+                      (pt._rev_t, jx._occ_rev_dev)):
         theirs = lut[np.asarray(dev).reshape(-1, jx.n_slots)]
-        assert np.array_equal(mine, theirs[:R, :S])
+        assert np.array_equal(mine.cpu().numpy(), theirs[:R, :S])
         assert (theirs[R:] == dummy).all() and (theirs[:, S:] == dummy).all()
-    assert (pt.fwd_keys[-6:] == dummy).all()  # the absent reads
+    assert (pt._fwd_t[-6:] == dummy).all()  # the absent reads
 
 
 def test_presence_chunk_equals_tpu_scorer(scored):
@@ -202,6 +209,192 @@ def test_device_scorer_routing(scored):
     for opt in ("host_score", "pseudochain", "write_read_scores_unfiltered"):
         c = td.MetaConfig(log=lambda *a, **k: None, **{opt: True})
         assert td.make_scorers(c, w.midx, reads, CPU)[1] is None
+
+
+# ---- the scorer's build against the host oracles ------------------------
+
+def _host_build(midx, reads, C):
+    """The scorer's state as numpy built it on the host before the build
+    moved to the device (TorchMetaScorer.__init__ then): the read hashes,
+    the event table by position, the chunk carries and bounds, each
+    event's column and the reads' key slots."""
+    all_h = (np.concatenate([r.hashes for r in reads])
+             if reads else np.empty(0, np.uint64))
+    uniq_h = np.unique(all_h)
+    idx_h = np.unique(np.asarray(midx.seed_hash, dtype=np.uint64))
+    if len(idx_h) and len(uniq_h):
+        ii = np.minimum(np.searchsorted(idx_h, uniq_h), len(idx_h) - 1)
+        read_hashes = uniq_h[idx_h[ii] == uniq_h]
+    else:
+        read_hashes = uniq_h[:0]
+    ev = presence_events(midx, read_hashes)
+    U = len(read_hashes)
+    n_rows = 2 * U + 1
+    n_nodes = len(midx.node_ids)
+    key = (np.where(ev["ev_rev"], U, 0) + ev["ev_uid"]).astype(np.int64)
+    order = np.argsort(ev["ev_node"], kind="stable")
+    evp_pos = ev["ev_node"][order].astype(np.int64)
+    evp_key = key[order]
+    evp_delta = ev["ev_delta"][order].astype(np.int32)
+    R = len(reads)
+    nseeds = np.array([len(r.hashes) for r in reads], dtype=np.int64)
+    if U:
+        occ_pos = np.minimum(np.searchsorted(read_hashes, all_h), U - 1)
+        occ_found = read_hashes[occ_pos] == all_h
+    else:
+        occ_pos = np.zeros(len(all_h), dtype=np.int64)
+        occ_found = np.zeros(len(all_h), dtype=bool)
+    occ_uid = occ_pos.astype(np.int64)
+    occ_rev = (np.concatenate([np.asarray(r.revs, dtype=bool) for r in reads])
+               if reads else np.empty(0, bool))
+    S = max(int(nseeds.max()) if R else 1, 1)
+    dummy = n_rows - 1
+    fwd_sl = np.full((R, S), dummy, dtype=np.int32)
+    rev_sl = np.full((R, S), dummy, dtype=np.int32)
+    row_of = np.repeat(np.arange(R, dtype=np.int64), nseeds)
+    slot_of = (np.arange(len(occ_uid), dtype=np.int64)
+               - np.repeat(np.cumsum(nseeds) - nseeds, nseeds))
+    fwd_sl[row_of, slot_of] = np.where(
+        ~occ_found, dummy, np.where(occ_rev, U + occ_uid, occ_uid))
+    rev_sl[row_of, slot_of] = np.where(
+        ~occ_found, dummy, np.where(occ_rev, occ_uid, U + occ_uid))
+    chunk_lo = list(range(0, n_nodes + 1, C))
+    carries = []
+    state = np.zeros(n_rows, dtype=np.int32)
+    prev = 0
+    for lo in chunk_lo:
+        cut = np.searchsorted(evp_pos, lo)
+        np.add.at(state, evp_key[prev:cut], evp_delta[prev:cut])
+        prev = cut
+        carries.append(state.copy())
+    bounds = np.searchsorted(evp_pos, chunk_lo + [n_nodes + 1])
+    ev_col = evp_pos - np.repeat(np.asarray(chunk_lo, np.int64),
+                                 np.diff(bounds))
+    return dict(read_hashes=read_hashes, ev=ev, evp_pos=evp_pos,
+                evp_key=evp_key, evp_delta=evp_delta, chunk_lo=chunk_lo,
+                carries=np.stack(carries), bounds=bounds, ev_col=ev_col,
+                fwd=fwd_sl, rev=rev_sl, S=S)
+
+
+def _absent_reads(rng, n):
+    return [MetaRead(hashes=rng.integers(1, 1 << 62, k).astype(np.uint64),
+                     revs=rng.random(k) < 0.5, n_dup=1)
+            for k in rng.integers(3, 12, n)]
+
+
+def _build_case(scored, case):
+    """(midx, reads, node chunk) of a build case: the scored fixture's
+    sketch with 64-node or default chunks; reads none of whose hashes the
+    index holds (U = 0); reads whose every other occurrence is absent."""
+    w, reads, _, _ = scored
+    rng = np.random.default_rng(17)
+    if case == "no_read_hash_in_index":
+        reads = _absent_reads(rng, 40)
+    elif case == "absent_mixed":
+        mixed = []
+        for r in reads[:200]:
+            h = r.hashes.copy()
+            h[::2] = rng.integers(1, 1 << 62, len(h[::2])).astype(np.uint64)
+            mixed.append(MetaRead(hashes=h, revs=r.revs, n_dup=1))
+        reads = mixed + _absent_reads(rng, 3)
+    C = 64 if case in ("chunk64", "absent_mixed") else (
+        TorchMetaScorer.NODE_CHUNK)
+    return w.midx, reads, C
+
+
+BUILD_CASES = ["chunk64", "default_chunk", "no_read_hash_in_index",
+               "absent_mixed"]
+
+
+def _scorer(midx, reads, C, device):
+    saved = TorchMetaScorer.NODE_CHUNK
+    TorchMetaScorer.NODE_CHUNK = C
+    try:
+        return TorchMetaScorer(midx, reads, device)
+    finally:
+        TorchMetaScorer.NODE_CHUNK = saved
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_device_event_table_equals_presence_events(scored, case):
+    """presence_events_torch's read hashes, occurrence uids and event
+    table against the host's restriction and events.presence_events,
+    element for element and in the host's order."""
+    midx, reads, C = _build_case(scored, case)
+    host = _host_build(midx, reads, C)
+    t = {k: torch.from_numpy(x) for k, x in meta_inputs(midx, reads).items()}
+    read_hashes, occ_uid, ev = presence_events_torch(t)
+    rh = host["read_hashes"]
+    assert np.array_equal(read_hashes.numpy().view(np.uint64), rh)
+    assert (len(rh) == 0) == (case == "no_read_hash_in_index")
+    all_h = np.concatenate([r.hashes for r in reads])
+    want_uid = np.full(len(all_h), -1, dtype=np.int64)
+    if len(rh):
+        pos = np.minimum(np.searchsorted(rh, all_h), len(rh) - 1)
+        want_uid = np.where(rh[pos] == all_h, pos, -1)
+    assert np.array_equal(occ_uid.numpy(), want_uid)
+    if case == "absent_mixed":
+        assert (want_uid < 0).any() and (want_uid >= 0).any()
+    want = presence_events(midx, rh)
+    assert set(ev) == set(want)
+    for k, v in want.items():
+        assert np.array_equal(ev[k].numpy(), v), k
+    assert len(want["den_node"]) > 0
+    assert (len(want["ev_node"]) > 0) == (case != "no_read_hash_in_index")
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_device_build_equals_host_build(scored, case):
+    """The scorer's event order, carries, chunk bounds, event columns and
+    key slots against the numpy build, element for element; its overlap
+    coefficients against overlap_coefficients_from_events, bit for bit."""
+    midx, reads, C = _build_case(scored, case)
+    host = _host_build(midx, reads, C)
+    pt = _scorer(midx, reads, C, CPU)
+    assert pt.NODE_CHUNK == C and pt._chunk_lo == host["chunk_lo"]
+    assert (pt.n_chunks > 4) == (C == 64)
+    assert pt.U == len(host["read_hashes"]) and pt.n_slots == host["S"]
+    assert np.array_equal(pt.read_hashes, host["read_hashes"])
+    assert all(x is y for x, y in zip(pt._ev_on[CPU], (
+        pt._evp_key, pt._evp_pos, pt._evp_delta, pt._carries)))
+    for got, want in ((pt._evp_pos, "evp_pos"), (pt._evp_key, "evp_key"),
+                      (pt._evp_delta, "evp_delta"),
+                      (pt._carries, "carries"), (pt._fwd_t, "fwd"),
+                      (pt._rev_t, "rev")):
+        assert got.dtype == torch.from_numpy(host[want]).dtype, want
+        assert np.array_equal(got.numpy(), host[want]), want
+    assert np.array_equal(pt._ev_bounds, host["bounds"])
+    # the columns presence() hands presence_chunk: position - chunk start
+    b = pt._ev_bounds
+    col = np.concatenate([pt._evp_pos[b[ci]:b[ci + 1]].numpy() - lo
+                          for ci, lo in enumerate(pt._chunk_lo)])
+    assert np.array_equal(col, host["ev_col"])
+    assert len(col) == len(host["ev_col"]) and (col < C).all()
+    oc = pt.overlap_coefficients()
+    want = overlap_coefficients_from_events(host["ev"], len(midx.node_ids))
+    assert oc.dtype == np.float64
+    assert np.array_equal(oc.view(np.int64), want.view(np.int64))
+    if case != "no_read_hash_in_index":
+        assert oc.max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_cuda_build_matches_cpu(scored, case):
+    """The card's build equals the build on CPU tensors, tensor for
+    tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    midx, reads, C = _build_case(scored, case)
+    cpu = _scorer(midx, reads, C, CPU)
+    gpu = _scorer(midx, reads, C, "cuda")
+    for name in ("_evp_pos", "_evp_key", "_evp_delta", "_carries", "_fwd_t",
+                 "_rev_t"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    assert np.array_equal(gpu.read_hashes, cpu.read_hashes)
+    assert np.array_equal(gpu._ev_bounds, cpu._ev_bounds)
+    assert np.array_equal(gpu.overlap_coefficients().view(np.int64),
+                          cpu.overlap_coefficients().view(np.int64))
 
 
 # ---- EM ----------------------------------------------------------------

@@ -162,7 +162,23 @@ def keep(name, pick):
 abatch.TorchBatchAligner = Aligner
 keep("sketch", lambda res: len(res[0]))
 keep("run_em", lambda res: res.n_iterations)
-keep("make_scorers", lambda res: [res[1].U, len(res[1].ev_pos)])
+
+
+# the device scorer's read hashes, events and delta rows, and the bytes of
+# the inputs its build uploads: the delta rows' seed id (int32) and deletion
+# flag, the seed table's hash (int64) and orientation, the node offsets and
+# subtree ends (int64), each read occurrence's hash and orientation, each
+# read's count (int64)
+def scorer_counts(res):
+    fast = res[1]
+    m = fast.midx
+    n, occ = len(m.node_ids), sum(len(r.hashes) for r in fast.reads)
+    upload = (5 * len(m.delta_seed) + 9 * len(m.seed_hash)
+              + 8 * (2 * n + 1) + 9 * occ + 8 * len(fast.reads))
+    return [fast.U, len(fast.ev_pos), len(m.delta_seed), upload]
+
+
+keep("make_scorers", scorer_counts)
 
 if mode == "off":
     def refuse(*a, **k):
@@ -312,16 +328,17 @@ def test_meta_span_tree_and_counts(traced):
     # the --meta call's (the --profile call after it adds its own)
     read_sets = traced["seen"]["sketch"][0]
     steps = traced["seen"]["run_em"][0]
-    hashes, events = traced["seen"]["make_scorers"][0]
+    hashes, events, rows, upload = traced["seen"]["make_scorers"][0]
     sketch = _one(by, "meta.sketch")["counts"]
     assert sketch == {"reads": traced["meta_reads"], "read_sets": read_sets}
     em = _one(by, "meta.em")["counts"]
     assert em["steps"] == steps > 0 and 1 <= em["rounds"] <= 5
     score = _one(by, "meta.score")["counts"]
     assert score["device"] == 1 and score["candidates"] > 0
-    assert _one(by, "meta.events")["counts"] == {"read_hashes": hashes,
-                                                 "events": events}
-    assert _one(by, "meta.upload")["counts"]["bytes"] > 0
+    assert _one(by, "meta.events")["counts"] == {
+        "read_hashes": hashes, "events": events, "steps": 2 * rows}
+    assert rows > 0 and events > 0
+    assert _one(by, "meta.upload")["counts"] == {"bytes": upload}
     assert traced["meta"]["ranges"] == _ranges_of_profiling_thread(
         recs, traced["pid"])
     assert "panmap:meta.events" in traced["meta"]["ranges"]
