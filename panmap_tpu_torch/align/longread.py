@@ -20,9 +20,19 @@ large indel chains across it and the banded DP gets the full diagonal range.
 Short reads keep using the bit-exact sr path in align/core.py /
 align/batch.py.
 
-The host half (presets, chain DP, ``banded_dp_shifted``, LongReadAligner's
-front end and ``_finish``) is carried over from
-panmap_tpu/align/longread.py unchanged; its device routing
+mapq takes its secondary score as minimap2 does: chains are backtracked
+with each anchor used once (mm_chain_backtrack), and the secondary is the
+best other chain, on either strand, whose query span overlaps the
+primary's by at least half the shorter span (mm_set_parent, mask level
+0.5).  The JAX package takes the best f of any anchor off the primary
+chain, which an anchor beside the chain nearly always matches, so nearly
+every read there gets mapq 1; chain_dp and _chain_front differ from its
+for that alone, and every other field of a read's alignment is the JAX
+package's.
+
+The host half (presets, ``banded_dp_shifted``, LongReadAligner's
+``_finish``) is carried over from panmap_tpu/align/longread.py unchanged;
+its device routing
 (_resolve_long_device: a locally attached TPU, PANMAP_PALLAS_LONG) served a
 remote TPU link and is not carried.  ``LongReadAligner.align_batch`` here is
 the host path (the JAX package's ``device=None``); TorchLongReadAligner
@@ -77,21 +87,36 @@ def pick_preset(avg_len: float) -> LongPreset:
 
 
 def chain_dp(qv: np.ndarray, rv: np.ndarray, k: int, max_gap: int,
-             h: int = 50):
+             min_cnt: int, min_sc: float, h: int = 50):
     """minimap2 chain DP (chain.c mm_chain_dp semantics): anchors sorted by
     (rpos, qpos); f[j] = max over the last `h` predecessors of
     f[i] + min(dq, dr, k) - gamma(dd) with gamma(dd) = 0.01*k*dd +
-    0.5*log2(dd); anchors start at f = k.  Returns (best_score,
-    chain_anchor_indices ascending, second_best_score) where indices are
-    into the input arrays."""
+    0.5*log2(dd); anchors start at f = k.  The best chain ends at the first
+    anchor of the highest f and follows, on ties, the first predecessor.
+
+    Then the chains as mm_chain_backtrack makes them, on minimap2's
+    predecessors (the last one on ties): from the anchor of the highest f
+    down (the first anchor on ties, so that the first chain ends where the
+    best one does), each chain walks back until it meets an anchor an
+    earlier chain took, so that every anchor is used once, and scores
+    f[end] - f[met] (f[end] where it met none).  The first predecessor
+    leaves anchors of a colinear run off the best chain, as parallel chains
+    of their own that minimap2 never makes; its choice is kept for the best
+    chain, whose anchors set the DP's band.
+
+    Returns (best_score, chain_anchor_indices ascending, chains): chains is
+    [(score, anchor indices ascending)], the first chain, then the later
+    ones that end at an f of at least ``min_sc`` and have ``min_cnt``
+    anchors and ``min_sc`` score; indices are into the input arrays."""
     n = len(qv)
     if n == 0:
-        return 0.0, np.empty(0, np.int64), 0.0
+        return 0.0, np.empty(0, np.int64), []
     order = np.lexsort((qv, rv))
     q = qv[order].astype(np.int64)
     r = rv[order].astype(np.int64)
     f = np.full(n, float(k))
     pre = np.full(n, -1, np.int64)
+    last = np.full(n, -1, np.int64)  # minimap2's predecessor
     for j in range(1, n):
         i0 = max(0, j - h)
         dq = q[j] - q[i0:j]
@@ -108,6 +133,7 @@ def chain_dp(qv: np.ndarray, rv: np.ndarray, k: int, max_gap: int,
         if cand[bi] > f[j]:
             f[j] = cand[bi]
             pre[j] = i0 + bi
+            last[j] = j - 1 - int(np.argmax(cand[::-1]))
     jbest = int(np.argmax(f))
     chain = []
     jj = jbest
@@ -115,11 +141,24 @@ def chain_dp(qv: np.ndarray, rv: np.ndarray, k: int, max_gap: int,
         chain.append(jj)
         jj = int(pre[jj])
     chain_idx = order[np.array(chain[::-1], dtype=np.int64)]
-    # secondary: best score among anchors outside the primary chain
-    mask = np.ones(n, dtype=bool)
-    mask[np.array(chain, dtype=np.int64)] = False
-    second = float(f[mask].max()) if mask.any() else 0.0
-    return float(f[jbest]), chain_idx, second
+
+    used = np.zeros(n, bool)
+    chains = []
+    ends = np.flatnonzero(f >= min_sc)
+    ends = ends[np.argsort(-f[ends], kind="stable")]
+    for j in [jbest] + ends[ends != jbest].tolist():
+        if used[j]:
+            continue
+        ids = []
+        jj = j
+        while jj >= 0 and not used[jj]:
+            ids.append(jj)
+            used[jj] = True
+            jj = int(last[jj])
+        sc = float(f[j] - f[jj]) if jj >= 0 else float(f[j])
+        if not chains or (len(ids) >= min_cnt and sc >= min_sc):
+            chains.append((sc, order[np.array(ids[::-1], dtype=np.int64)]))
+    return float(f[jbest]), chain_idx, chains
 
 
 def banded_dp_shifted(q: np.ndarray, r: np.ndarray, dlo: int, dhi: int,
@@ -259,12 +298,11 @@ class LongReadAligner:
                                self.pre)
         return self._finish(dp, meta)
 
-    def _chain_front(self, seq: str):
-        """Anchor + chain phase: returns (oriented_codes, dlo, dhi, meta)
-        where meta carries what _finish needs, or None when unmapped."""
+    def _anchors(self, codes2: np.ndarray):
+        """The read's minimizer hits on the reference: (query position,
+        reference position, strand relative to the reference) arrays, or
+        None where it has none."""
         pre = self.pre
-        codes2 = encode(np.frombuffer(seq.encode(), dtype=np.uint8))
-        lq = len(codes2)
         qpos, qh, qstrand = minimizer_sketch(codes2, pre.k, pre.w)
         if len(qpos) == 0:
             return None
@@ -286,10 +324,22 @@ class LongReadAligner:
             qq[o : o + c] = qpos[a]
             rel[o : o + c] = self.index.strand[s0:e0] ^ qstrand[a]
             o += c
+        return qq, rpos, rel
+
+    def _chain_front(self, seq: str):
+        """Anchor + chain phase: returns (oriented_codes, dlo, dhi, meta)
+        where meta carries what _finish needs, or None when unmapped."""
+        pre = self.pre
+        codes2 = encode(np.frombuffer(seq.encode(), dtype=np.uint8))
+        lq = len(codes2)
+        hits = self._anchors(codes2)
+        if hits is None:
+            return None
+        qq, rpos, rel = hits
 
         # per-strand minimap2 chain DP; primary = best chain across strands
         best = None
-        second_score = 0.0
+        found = []  # per strand: minimap2's chains, (score, anchors, span)
         for strand_rel in (0, 1):
             m = rel == strand_rel
             if not m.any():
@@ -298,24 +348,34 @@ class LongReadAligner:
                 qv = qq[m]
             else:
                 qv = lq - pre.k - qq[m]
-            score, chain_idx, sub = chain_dp(qv, rpos[m], pre.k, pre.max_gap)
-            if len(chain_idx) == 0:
-                continue
+            score, chain_idx, chains = chain_dp(
+                qv, rpos[m], pre.k, pre.max_gap, pre.min_cnt,
+                pre.min_chain_score)
+            qs = qq[m]  # query span on the read: [first, last + k)
+            found.append([(sc, len(ix), (int(qs[ix].min()),
+                                         int(qs[ix].max()) + pre.k))
+                          for sc, ix in chains])
             diags = rpos[m][chain_idx] - qv[chain_idx]
             cand = (score, len(chain_idx), strand_rel,
-                    int(diags.min()), int(diags.max()))
+                    int(diags.min()), int(diags.max()), len(found) - 1)
             if best is None or score > best[0]:
-                if best is not None:
-                    second_score = max(second_score, best[0])
                 best = cand
-                second_score = max(second_score, sub)
-            else:
-                second_score = max(second_score, score)
         if best is None:
             return None
-        chain_score, votes, strand_rel, dmin, dmax = best
+        chain_score, votes, strand_rel, dmin, dmax, at = best
         if votes < pre.min_cnt or chain_score < pre.min_chain_score:
             return None
+        # secondary (mm_set_parent, mask level 0.5): the best other chain
+        # of min_cnt anchors and min_chain_score, on either strand, whose
+        # query span overlaps the primary's by at least half the shorter
+        ps, pe = found[at][0][2]
+        others = [c for n, chains in enumerate(found)
+                  for c in (chains[1:] if n == at else chains)]
+        second_score = max(
+            (sc for sc, cnt, (a, b) in others
+             if cnt >= pre.min_cnt and sc >= pre.min_chain_score
+             and 2 * (min(b, pe) - max(a, ps)) >= min(b - a, pe - ps)),
+            default=0.0)
 
         oriented = codes2 if strand_rel == 0 else _RC_CODE[codes2[::-1]]
         dlo = int(dmin) - pre.bw
@@ -377,5 +437,10 @@ class TorchLongReadAligner(LongReadAligner):
 
         dps = iter(long_dp_batch(items, self.index.codes2, self.pre,
                                  self.device, self.stats, self._ref_dev))
-        return [Alignment() if f is None else self._finish(next(dps), f[3])
-                for f in fronts]
+        with trace.span("align.mapq") as sp:
+            out = [Alignment() if f is None else self._finish(next(dps), f[3])
+                   for f in fronts]
+            mapq = [a.mapq for a in out if a.mapped]
+            sp.count("mapped", len(mapq))
+            sp.count("mapq_low", sum(m < 20 for m in mapq))
+        return out

@@ -29,6 +29,7 @@ from panmap_tpu_torch.synthetic import (make_panman_long_workload,
 from panmap_tpu_torch.utils import device
 
 from test_torch_assign import FILES as ASSIGN_FILES
+from test_torch_long import jax_front_with_port_secondary
 
 MAINS = {"jax": jax_main, "torch": torch_main}
 
@@ -102,7 +103,10 @@ def test_short_sample_places_on_the_source_leaf(panman_dirs, on_cpu):
     assert ref == w.model.get_string(placed_node(b))
 
 
-def test_long_reads(panman_dirs, on_cpu, tmp_path):
+def test_long_reads(panman_dirs, on_cpu, tmp_path, monkeypatch):
+    # the JAX package's front end with the port's secondary chain score,
+    # the one part of it the port changes (ROADMAP C)
+    jax_front_with_port_secondary(monkeypatch)
     w, dirs = panman_dirs
     lw = make_panman_long_workload(w, str(tmp_path), seed=3, n_reads=60,
                                    len_lo=800, len_hi=1400)

@@ -7,10 +7,18 @@
    batch entry long_dp_device_batch item by item, narrow bands included, and
    routes oversized items to the host DP, counted;
  - the port's _finish_one is the JAX package's, line for line;
- - TorchLongReadAligner equals LongReadAligner field for field;
+ - TorchLongReadAligner equals the port's LongReadAligner field for field,
+   and the JAX package's in every field but mapq, whose secondary chain
+   score the port takes from anchor-disjoint chains (ROADMAP C);
+ - the secondary scores and mapq equal the benchmark's plain reference
+   (pmbench/reference/chains.py): unique reads get mapq 60, a read of a
+   repeated locus a low one;
+ - long_dp_rows_reference equals the benchmark's plain DP
+   (pmbench/reference/long_dp.py) bit for bit;
  - the CUDA kernel equals its plain version bit for bit (needs a GPU).
 
-Tolerance everywhere: exact equality (the path is all integer).
+Tolerance everywhere: exact equality (the path is all integer, the chain
+scores are the same float64 operations in the same order).
 """
 
 from dataclasses import asdict, replace
@@ -30,6 +38,9 @@ from panmap_tpu_torch.align.longread import (
     MAP_ONT,
     TorchLongReadAligner,
 )
+from panmap_tpu_torch.synthetic import _ont_errors
+from pmbench.reference import chains as ref_chains
+from pmbench.reference import long_dp as ref_long_dp
 
 # the port's presets; the JAX package's functions get its own class
 PRESETS = [MAP_ONT, MAP_HIFI]
@@ -339,14 +350,115 @@ def test_aligner_matches_host_aligner(pre):
         reads)
     assert len(got) == len(base) == len(host)
     for i, (a, b, c) in enumerate(zip(base, got, host)):
-        assert (a.mapped, a.rev, a.rs, a.re, a.qs, a.qe, a.score, a.mapq,
+        # every field but mapq is the JAX package's (its mapq takes another
+        # secondary score: ROADMAP C); the port's two paths agree in all
+        assert (a.mapped, a.rev, a.rs, a.re, a.qs, a.qe, a.score,
                 a.cigar) == (b.mapped, b.rev, b.rs, b.re, b.qs, b.qe,
-                             b.score, b.mapq, b.cigar), i
-        assert (a.mapped, a.rs, a.re, a.score, a.cigar) == (
-            c.mapped, c.rs, c.re, c.score, c.cigar), i
+                             b.score, b.cigar), i
+        assert (b.mapped, b.rev, b.rs, b.re, b.qs, b.qe, b.score, b.mapq,
+                b.cigar) == (c.mapped, c.rev, c.rs, c.re, c.qs, c.qe,
+                             c.score, c.mapq, c.cigar), i
     assert not got[-1].mapped
     assert sum(a.mapped and a.rev for a in got) > 0
     assert stats["device_dp"] == stats["items"] > 0 and stats["host_dp"] == 0
+
+
+def jax_front_with_port_secondary(monkeypatch):
+    """The JAX package's long-read front end with the port's secondary
+    chain score in its result, for tests that hold whole outputs of the
+    two packages equal: every other part of each read's front end result
+    (oriented read, band, strand, primary score, anchors) is asserted equal
+    to the port's."""
+    ports = {}
+    orig = jax_longread.LongReadAligner._chain_front
+
+    def front(self, seq):
+        got = orig(self, seq)
+        if id(self) not in ports:
+            ports[id(self)] = (self, port_longread.LongReadAligner(
+                self.ref, port_longread.LongPreset(**asdict(self.pre))))
+        mine = ports[id(self)][1]._chain_front(seq)
+        assert (got is None) == (mine is None)
+        if got is None:
+            return None
+        np.testing.assert_array_equal(got[0], mine[0])
+        assert got[1:3] == mine[1:3] and got[3][:4] == mine[3][:4]
+        return (*got[:3], (*got[3][:4], mine[3][4]))
+
+    monkeypatch.setattr(jax_longread.LongReadAligner, "_chain_front", front)
+
+
+def _locus_reads(seed, repeat):
+    """(reference, reads): a random 12 kb reference and ten reads of
+    900-1,300 bp with 2% Nanopore-like errors, half reverse-complemented,
+    from one 2.4 kb stretch of it; with ``repeat`` the stretch is copied
+    to a second locus, so that every read has two."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 12000)
+    if repeat:
+        ref[8000:10400] = ref[2000:4400]
+    reads = []
+    for _ in range(10):
+        L = int(rng.integers(900, 1301))
+        p = int(rng.integers(2000, 4400 - L))
+        codes = _ont_errors(rng, ref[p:p + L], 0.02)
+        if rng.random() < 0.5:
+            codes = 3 - codes[::-1]
+        reads.append("".join("ACGT"[c] for c in codes))
+    return "".join("ACGT"[c] for c in ref), reads
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+@pytest.mark.parametrize("repeat", [False, True], ids=["unique", "repeat"])
+def test_secondary_score_and_mapq_match_the_plain_reference(seed, repeat):
+    ref, reads = _locus_reads(seed, repeat)
+    al = TorchLongReadAligner(ref, MAP_ONT, "cpu")
+    pre = al.pre
+    for seq in reads:
+        lq = len(seq)
+        hits = al._anchors(encode(np.frombuffer(seq.encode(), np.uint8)))
+        front = al._chain_front(seq)
+        assert front is not None
+        primary, second = ref_chains.secondary_score(
+            *hits, lq, pre.k, pre.max_gap, pre.min_cnt, pre.min_chain_score)
+        assert (front[3][2], front[3][4]) == (primary, second)
+        assert (second > primary / 2) == repeat, (primary, second)
+    got = al.align_batch(reads)
+    assert all(a.mapped for a in got)
+    if repeat:
+        assert max(a.mapq for a in got) < 20, [a.mapq for a in got]
+    else:
+        assert [a.mapq for a in got] == [60] * len(got)
+
+
+@pytest.mark.parametrize("pre", PRESETS, ids=lambda p: p.name)
+def test_reference_matches_the_benchmarks_plain_dp(pre):
+    """long_dp_rows_reference (the kernel's plain version) against the
+    benchmark's plain DP, written apart from it, on random items: narrow
+    and wide bands, bands off either end of the reference, ragged query
+    lengths, N codes; whole arrays, padding included."""
+    rng = np.random.default_rng(17)
+    ref = torch.from_numpy(rng.integers(0, 5, 3000).astype(np.int8))
+    scores = (pre.match, pre.mismatch, pre.gap_open, pre.gap_ext,
+              pre.gap_open2, pre.gap_ext2)
+    for B, LQ, W in [(3, 40, 1), (5, 300, 33), (4, 200, 260)]:
+        q = torch.from_numpy(rng.integers(0, 5, (B, LQ)).astype(np.int8))
+        meta = np.stack([rng.integers(0, LQ + 1, B),
+                         rng.integers(-300, 3000, B),
+                         rng.integers(1, W + 1, B)], 1).astype(np.int32)
+        meta[0] = (LQ, 100, W)
+        mt = torch.from_numpy(meta)
+        got = long_dp.long_dp_rows_reference(q, ref, mt, pre, W)
+        want = ref_long_dp.long_dp_rows(q, ref, mt, scores, W)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    # and on the items of the pipeline's shapes
+    refc, items = _items(23, 6, 300, 480, 200)
+    q, meta, W = _torch_inputs(items)
+    rt = torch.from_numpy(refc.astype(np.int8))
+    for g, w in zip(long_dp.long_dp_rows_reference(q, rt, meta, pre, W),
+                    ref_long_dp.long_dp_rows(q, rt, meta, scores, W)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -26,6 +26,7 @@ from panmap_tpu_torch import pipeline as tp
 from panmap_tpu_torch.__main__ import main as torch_main
 from panmap_tpu_torch.synthetic import make_long_workload, make_workload
 from test_torch_standalone import jax_index
+from test_torch_long import jax_front_with_port_secondary
 
 OUTPUTS = ("placement.tsv", "ref.fa", "bam", "vcf", "consensus.fa")
 
@@ -176,13 +177,16 @@ def test_long_read_slice_outputs_byte_equal_to_jax_package(tmp_path,
     ~200 bp deletion, 40 Nanopore-like reads of 800-1,600 bp, one of them
     junk.  The JAX side aligns with its host DP (its bit-equality to the
     Pallas kernel is tests/test_align_long.py's job), the port with the
-    kernel's plain version on CPU tensors.  A QUAL floor of 10 instead of
-    30 lets ~12x depth call variants (long-read mapq is 1: ROADMAP C)."""
+    kernel's plain version on CPU tensors.  The JAX side's front end takes
+    the port's secondary chain score, the one part of it the port changes
+    (ROADMAP C), so that the mapq and the genotyper's quality caps agree; a
+    QUAL floor of 10 instead of 30 lets ~12x depth call variants."""
     w = make_long_workload(str(tmp_path / "reads"), seed=0, n_reads=40,
                            n_nodes=40, genome_len=4000, len_lo=800,
                            len_hi=1600)
     assert len(w.junk) == 1
     monkeypatch.setenv("PANMAP_PALLAS_LONG", "0")
+    jax_front_with_port_secondary(monkeypatch)
     lines = []
     cfg = _cfg(hp, str(tmp_path / "jax" / "sample"), w, lines, min_qual=10)
     jidx = jax_index(w.idx)

@@ -331,6 +331,14 @@ DIFFERS = {
         "LongReadAligner.align_batch":
             "the host path only (the JAX package's device=None); the "
             "device route is TorchLongReadAligner.align_batch",
+        "chain_dp": "also backtracks minimap2's anchor-disjoint chains "
+                    "(mm_chain_backtrack) for the secondary score; the "
+                    "best chain is the JAX package's",
+        "LongReadAligner._chain_front":
+            "the anchors in _anchors; the secondary score is the best "
+            "anchor-disjoint chain overlapping the primary on the read "
+            "(mm_set_parent), not the best f off the primary chain, so "
+            "only mapq differs (ROADMAP C)",
     },
     "genotype/caller.py": {
         "resolve_device_pileup": "takes the device and returns it (or None "
@@ -404,7 +412,7 @@ DIFFERS = {
 CARRIED = {
     "__init__.py": 1,
     "__main__.py": 1, "align/adna.py": 5, "align/batch.py": 10,
-    "align/bwt.py": 13, "align/core.py": 15, "align/longread.py": 8,
+    "align/bwt.py": 13, "align/core.py": 15, "align/longread.py": 6,
     "genotype/baq.py": 9, "genotype/caller.py": 25, "genotype/indel.py": 10,
     "index/builder.py": 28, "io/bam.py": 15, "io/capnp.py": 33,
     "io/fastq.py": 11, "io/index_io.py": 3, "io/panman.py": 17,

@@ -113,10 +113,12 @@ from torch.profiler import ProfilerActivity, profile
 from panmap_tpu_torch import pipeline as tp, trace
 from panmap_tpu_torch.__main__ import main
 from panmap_tpu_torch.align import batch as abatch
+from panmap_tpu_torch.align import longread
 from panmap_tpu_torch.io.index_io import save_index
 from panmap_tpu_torch.meta import driver as md
 from panmap_tpu_torch.meta.index import save_meta_index
-from panmap_tpu_torch.synthetic import make_meta_workload, make_workload
+from panmap_tpu_torch.synthetic import (make_long_workload,
+                                        make_meta_workload, make_workload)
 from panmap_tpu_torch.utils import device
 
 out, mode = sys.argv[1], sys.argv[2]
@@ -129,7 +131,15 @@ w = make_workload(os.path.join(out, "reads"), seed=2, n_nodes=40,
                   genome_len=30000, n_pairs=300)
 idx_path = os.path.join(out, "x.ptidx.npz")
 save_index(idx_path, w.idx)
-tp.load_panman = lambda path: w.tree
+lw = make_long_workload(os.path.join(out, "long_reads"), seed=2, n_reads=12,
+                        n_nodes=40, genome_len=4000, len_lo=600, len_hi=900)
+long_panman = os.path.join(out, "long.panman")
+open(long_panman, "wb").close()
+os.utime(long_panman, (0, 0))
+long_idx = os.path.join(out, "long.ptidx.npz")
+save_index(long_idx, lw.idx)
+trees = {panman: w.tree, long_panman: lw.tree}
+tp.load_panman = lambda path: trees[path]
 mw = make_meta_workload(os.path.join(out, "meta_reads"), seed=2, n_nodes=200,
                         genome_len=5000, n_pairs=1300)
 midx_path = os.path.join(out, "x.ptmidx.npz")
@@ -139,7 +149,8 @@ with open(manifest, "w") as fh:
     for name in ("batch_a", "batch_b"):
         fh.write(f"{w.reads1} {w.reads2} {os.path.join(out, name)}\n")
 
-seen = {"pallas_stats": [], "sketch": [], "run_em": [], "make_scorers": []}
+seen = {"pallas_stats": [], "sketch": [], "run_em": [], "make_scorers": [],
+        "long": []}
 
 
 class Aligner(abatch.TorchBatchAligner):
@@ -160,6 +171,17 @@ def keep(name, pick):
 
 
 abatch.TorchBatchAligner = Aligner
+long_batch = longread.TorchLongReadAligner.align_batch
+
+
+def long_align(self, seqs):
+    res = long_batch(self, seqs)
+    mapq = [a.mapq for a in res if a.mapped]
+    seen["long"].append([len(mapq), sum(m < 20 for m in mapq)])
+    return res
+
+
+longread.TorchLongReadAligner.align_batch = long_align
 keep("sketch", lambda res: len(res[0]))
 keep("run_em", lambda res: res.n_iterations)
 
@@ -194,6 +216,8 @@ calls = {
     "meta": [panman, mw.reads1, mw.reads2, "--meta", "-i", midx_path,
              "-o", os.path.join(out, "meta"), "-q"],
     "batch": [panman, "--batch", manifest, "-i", idx_path, "-t", "2", "-q"],
+    "long": [long_panman, lw.reads1, "-i", long_idx,
+             "-o", os.path.join(out, "long"), "-q"],
 }
 got = {"pid": os.getpid(), "index_rows": len(w.idx.seed_hashes)}
 trace.take()
@@ -201,8 +225,10 @@ for name, argv in calls.items():
     if mode == "on":
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             rc = main(argv)
-        ranges = sorted({e.name for e in prof.events()
-                         if e.name.startswith("panmap:")})
+        # the long call's plain DP makes tens of thousands of events, which
+        # take the profiler half a minute to hand over: its records only
+        ranges = [] if name == "long" else sorted(
+            {e.name for e in prof.events() if e.name.startswith("panmap:")})
     else:
         rc, ranges = main(argv), []
     got[name] = {"rc": rc, "records": trace.take(), "ranges": ranges}
@@ -236,7 +262,7 @@ def _calls(tmp_path, mode):
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("single", "meta", "batch"):
+    for name in ("single", "meta", "batch", "long"):
         assert got[name]["rc"] == 0, name
         for r in got[name]["records"]:
             r["id"] = tuple(r["id"])
@@ -379,9 +405,27 @@ def test_batch_workers_spans_arrive_under_their_sample(traced):
 
 
 @needs_native
+def test_long_read_span_tree_and_counts(traced):
+    recs = traced["long"]["records"]
+    by = _by_name(recs)
+    align = _one(by, "align")
+    assert align["parent"] == _one(by, "run")["id"]
+    for name in ("align.front", "align.dp", "align.traceback",
+                 "align.mapq"):
+        assert by[name] and all(r["parent"] == align["id"]
+                                for r in by[name]), name
+    # the mapq stage follows the DP's launches, and counts what it made
+    mapq = _one(by, "align.mapq")
+    assert mapq["start_ns"] >= max(r["end_ns"] for r in by["align.dp"])
+    (mapped, low), = traced["seen"]["long"]
+    assert mapq["counts"] == {"mapped": mapped, "mapq_low": low}
+    assert mapped >= 10
+
+
+@needs_native
 def test_untraced_calls_keep_nothing_and_open_no_range(tmp_path):
     got = _calls(tmp_path, "off")
-    for name in ("single", "meta", "batch"):
+    for name in ("single", "meta", "batch", "long"):
         assert got[name]["records"] == [], name
 
 
