@@ -536,7 +536,7 @@ def _snp_prefilter(DIAG, QS, ref_idx, g_p, gstart, ncol, spectrum):
 
 def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
                 baq: bool = False, spectrum=_NOPRUNE,
-                device_tally=None):
+                device_tally=None, indel_threads: int = 0):
     """reads: list[PlacedRead]. Returns list[SiteRecord] for alt-bearing sites."""
     if baq:
         from .baq import apply_baq
@@ -651,7 +651,8 @@ def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
     return _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
                           indel_events, rlens, Qcat, Scat, mqs, revs,
                           pairedok, qnames, rs_arr, indel_input=indel_input,
-                          spectrum=spectrum, device_tally=device_tally)
+                          spectrum=spectrum, device_tally=device_tally,
+                          indel_threads=indel_threads)
 
 
 @dataclass
@@ -680,7 +681,7 @@ class ColumnarReads:
 
 def pileup_call_columnar(ref: str, cols: ColumnarReads,
                          max_depth: int = MAX_DEPTH, spectrum=_NOPRUNE,
-                         device_tally=None):
+                         device_tally=None, indel_threads: int = 0):
     """Columnar twin of pileup_call: the per-read python cigar walk is
     replaced by one vectorized pass over the flat cigar stream (the object
     path stays the oracle; tests assert record equality).  No PlacedRead
@@ -823,7 +824,8 @@ def pileup_call_columnar(ref: str, cols: ColumnarReads,
                           indel_events, lq, Qcat, Scat, mqs, revs,
                           pairedok, qnames, cols.rs[kept],
                           indel_input=indel_input, pair_ids=pair_kept,
-                          spectrum=spectrum, device_tally=device_tally)
+                          spectrum=spectrum, device_tally=device_tally,
+                          indel_threads=indel_threads)
 
 
 def resolve_device_pileup(mode: str, device):
@@ -878,12 +880,14 @@ def tally_columns_device(col_id, g_q, g_s, g_b, ncol, device):
 def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
                    indel_events, rlens, Qcat, Scat, mqs, revs, pairedok,
                    qnames, rs_arr, indel_input=None, pair_ids=None,
-                   spectrum=_NOPRUNE, device_tally=None):
+                   spectrum=_NOPRUNE, device_tally=None, indel_threads=0):
     """Shared pileup back half: overlap tweaks, quality shaping, per-column
     errmod + tallies, SNP calling, indel calling.  Consumed by both the
     object front-end (pileup_call) and the columnar one
     (pileup_call_columnar).  ``device_tally`` is the device the per-column
-    tallies run on (resolve_device_pileup), None for the host bincounts."""
+    tallies run on (resolve_device_pileup), None for the host bincounts;
+    ``indel_threads`` the host threads of the indel realignment (<= 0: the
+    native library's default)."""
     with trace.span("genotype.columns"):
         records: list = []
         roffs = np.concatenate(([0], np.cumsum(rlens)))
@@ -920,7 +924,7 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
         with trace.span("genotype.indels", events=len(indel_events)):
             records.extend(_indel_records(ref, n, indel_events, flat_p,
                                           flat_rid, q, keep_q, revs, mqs,
-                                          depth, indel_input))
+                                          depth, indel_input, indel_threads))
         records.sort(key=lambda rec: rec.pos)
         return records
     with trace.span("genotype.columns") as sp:
@@ -1020,7 +1024,7 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
     with trace.span("genotype.indels", events=len(indel_events)):
         records.extend(_indel_records(ref, n, indel_events, flat_p, flat_rid,
                                       q, keep_q, revs, mqs, depth,
-                                      indel_input))
+                                      indel_input, indel_threads))
     records.sort(key=lambda rec: rec.pos)
     return records
 
@@ -1028,11 +1032,11 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
 
 
 def _indel_records(ref, n, indel_events, flat_p, flat_rid, q, keep_q, revs,
-                   mqs, depth, indel_input):
+                   mqs, depth, indel_input, threads=0):
     """Indel dispatch: the bcftools-realignment caller (genotype/indel.py)
     by default; the simplified left-normalized CIGAR-event caller
     (_call_indels) as the legacy oracle (PANMAP_TPU_LEGACY_INDELS=1 or no
-    IndelInput available)."""
+    IndelInput available).  ``threads``: the realignment's host threads."""
     import os as _os
 
     if (indel_input is None
@@ -1041,7 +1045,7 @@ def _indel_records(ref, n, indel_events, flat_p, flat_rid, q, keep_q, revs,
                             keep_q, revs, mqs, depth)
     from .indel import call_indels_realign
 
-    return call_indels_realign(ref, indel_input, depth, _ERRMOD)
+    return call_indels_realign(ref, indel_input, depth, _ERRMOD, threads)
 
 def _call_indels(ref: str, n: int, indel_events: list, flat_p, flat_rid,
                  flat_q, keep_q, revs, mqs, depth):

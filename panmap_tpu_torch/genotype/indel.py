@@ -20,12 +20,18 @@ model (src/3rdparty/bcftools/bam2bcf_indel.c bcf_call_gap_prep, driven by
     path (bam2bcf.c:250-470);
  7. alleles with est_indelreg extension (bcf_call2bcf:1190-1210).
 
+Steps 2-6 run for all candidate sites in one threaded native call
+(native/panmap_native.cpp::pt_indel_sites); _gap_prep_and_call is their
+Python twin, run without the library and held equal to it in
+tests/test_torch_indel_native.py.
+
 The previous simplified left-normalized CIGAR-event caller remains in
 caller.py::_call_indels as a comparison oracle (PANMAP_TPU_LEGACY_INDELS=1).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -243,21 +249,56 @@ def _read_state_at(rs: int, ops, lns, pos: int):
 
 
 def call_indels_realign(ref: str, inp: IndelInput, depth: np.ndarray,
-                        errmod) -> list:
+                        errmod, threads: int = 0) -> list:
     """The full gap_prep + glfgen + combine chain over every candidate
-    position.  Returns SiteRecord list (caller.SiteRecord)."""
-    from .caller import SiteRecord, _het_phred
+    position.  Returns SiteRecord list (caller.SiteRecord).
 
+    With the native library the per-site work, from the covering reads to
+    the glfgen entries, is one call over all candidates on ``threads`` host
+    threads (<= 0: min(cpu_count, 16)), and _site_record finishes each site;
+    without it (PANMAP_TPU_NO_NATIVE) _gap_prep_and_call, its twin, walks
+    the sites one by one.  Counts on the open span (genotype.indels): sites,
+    native (1 or 0), threads (1 for the twin) and, from the native call,
+    jobs (the realignments scored)."""
+    from .. import trace
+    from ..native import get_lib
+
+    native = get_lib() is not None
+    if threads <= 0:
+        threads = min(os.cpu_count() or 1, 16)
+    trace.count("native", int(native))
+    trace.count("threads", threads if native else 1)
     n = len(ref)
+    found = _candidates(n, inp)
+    trace.count("sites", 0 if found is None else len(found[0]))
+    if found is None:
+        return []
+    cand, ends, ins_cap = found
+    seq_codes_blob = np.full(len(inp.seq), 4, dtype=np.int64)
+    from .caller import _BLUT
+
+    seq_codes_blob[:] = _BLUT[inp.seq]
+    if native:
+        return _realign_native(ref, inp, seq_codes_blob, cand, ins_cap,
+                               depth, errmod, threads)
+    return _realign_py(ref, n, inp, seq_codes_blob, cand, ends, depth,
+                       errmod)
+
+
+def _candidates(n: int, inp: IndelInput):
+    """(cand, ends, ins_cap), or None where no position qualifies: the
+    candidate positions (base before any I/D op) with their per-position
+    support, vectorized over the flat op stream; each read's end on the
+    reference; per candidate the sum of its insertions' lengths (a bound on
+    its insertion consensus)."""
     nk = len(inp.rs)
     if nk == 0:
-        return []
+        return None
 
-    # candidate positions (base before any I/D op) + per-position support
-    # counts, vectorized over the flat op stream.  The support count is an
-    # UPPER BOUND on gap_prep's n_alt (uncapped, can double-count a read
-    # with two ops at one pos), so `count < MIN_SUPPORT` is a sound skip:
-    # the full per-read walk would hit the same `n_alt < MIN_SUPPORT` gate.
+    # The support count is an UPPER BOUND on gap_prep's n_alt (uncapped, can
+    # double-count a read with two ops at one pos), so `count < MIN_SUPPORT`
+    # is a sound skip: the full per-read walk would hit the same
+    # `n_alt < MIN_SUPPORT` gate.
     ops_f = np.asarray(inp.ops, dtype=np.int64)
     lns_f = np.asarray(inp.lns, dtype=np.int64)
     op_read = np.repeat(np.arange(nk, dtype=np.int64), np.diff(inp.opoff))
@@ -274,11 +315,11 @@ def call_indels_realign(ref: str, inp: IndelInput, depth: np.ndarray,
     p_all = x_at_op[is_cand_op] - 1
     p_all = p_all[(p_all > 0) & (p_all < n)]
     if len(p_all) == 0:
-        return []
+        return None
     p_uniq, p_cnt = np.unique(p_all, return_counts=True)
     cand = p_uniq[p_cnt >= MIN_SUPPORT]
     if len(cand) == 0:
-        return []
+        return None
 
     # read extents for overlap queries (segment sums of ref-advancing ops)
     spans = np.zeros(nk, dtype=np.int64)
@@ -286,10 +327,18 @@ def call_indels_realign(ref: str, inp: IndelInput, depth: np.ndarray,
     spans[ne] = sums
     ends = inp.rs + spans
 
-    seq_codes_blob = np.full(len(inp.seq), 4, dtype=np.int64)
-    from .caller import _BLUT
+    p_ins = x_at_op[ops_f == 1] - 1
+    at = np.searchsorted(cand, p_ins)
+    hit = (at < len(cand)) & (cand[np.minimum(at, len(cand) - 1)] == p_ins)
+    ins_cap = np.bincount(at[hit], weights=lns_f[ops_f == 1][hit],
+                          minlength=len(cand)).astype(np.int64)
+    return cand, ends, ins_cap
 
-    seq_codes_blob[:] = _BLUT[inp.seq]
+
+def _realign_py(ref, n, inp, seq_codes_blob, cand, ends, depth, errmod):
+    """The per-site walk: the covering reads of each candidate, then
+    _gap_prep_and_call (the native call's twin and the tests' oracle)."""
+    from .caller import SiteRecord, _het_phred
 
     records = []
     for pos in cand.tolist():
@@ -313,6 +362,106 @@ def call_indels_realign(ref: str, inp: IndelInput, depth: np.ndarray,
         if rec is not None:
             records.append(rec)
     return records
+
+
+def _realign_native(ref, inp, seq_codes_blob, cand, ins_cap, depth, errmod,
+                    threads):
+    """The per-site work in one native call (pt_indel_sites), then
+    _site_record over the sites that have entries."""
+    from .. import trace
+    from ..native import indel_sites_native
+    from .caller import _BLUT
+
+    raw = np.frombuffer(ref.encode(), dtype=np.uint8)
+    ref_codes = _BLUT[raw].astype(np.uint8)
+    ref_codes[(ref_codes == 4) & (raw != ord("N")) & (raw != ord("n"))] = 5
+    jobs, out = indel_sites_native(inp, seq_codes_blob, ref_codes, cand,
+                                   ins_cap, threads)
+    trace.count("jobs", jobs)
+    ins = np.frombuffer(b"ACGT", np.uint8)[out["ins_codes"]].tobytes().decode()
+    records = []
+    for i in np.flatnonzero(out["status"] == 1).tolist():
+        pos = int(cand[i])
+        types = out["types"][i, : out["n_types"][i]].tolist()
+        inscns = {ty: ins[a : a + ty]
+                  for ty, a in zip(types, out["ins_at"][i].tolist())
+                  if ty > 0}
+        indel_types = out["slot_types"][i, : out["n_slots"][i]].tolist()
+        ne = int(out["n_entries"][i])
+        rec = _site_record(ref, pos, types, inscns, indel_types,
+                           out["e_q"][i, :ne].astype(np.int64),
+                           out["e_s"][i, :ne].astype(np.int64),
+                           out["e_b"][i, :ne].astype(np.int64),
+                           errmod, depth)
+        if rec is not None:
+            records.append(rec)
+    return records
+
+
+def _site_record(ref, pos, types, inscns, indel_types, eq, es, eb, errmod,
+                 depth):
+    """_gap_prep_and_call's tail over one site's glfgen entries (eq, es, eb:
+    q, strand, slot): errmod, PL/GT, est_indelreg and the allele strings,
+    line for line."""
+    from .caller import SiteRecord, _het_phred
+
+    # ---- errmod + combine (same machinery as the SNP column) ----
+    DIAG, col_bsum, _cc = errmod.cal_arrays(eq, es, eb)
+    qs = np.bincount(eb, weights=eq.astype(np.float64), minlength=4)
+    adf = np.bincount(eb[es == 0], minlength=4)
+    adr = np.bincount(eb[es != 0], minlength=4)
+    tot = qs.sum()
+    if tot <= 0:
+        return None
+    qsum = qs / tot
+    alt_order = sorted((b_ for b_ in range(min(4, len(indel_types)))
+                        if b_ != 0 and qsum[b_] > 0
+                        and indel_types[b_] != 0),  # dup-REF slots excluded
+                       key=lambda b_: (-qsum[b_], b_))
+    if not alt_order:
+        return None
+    alleles = [0] + alt_order
+    base_counts = np.bincount(eb, minlength=5)
+    na = len(alleles)
+    gvals = []
+    hom_idx = []
+    z = 0
+    for i2 in range(na):
+        for j2 in range(i2 + 1):
+            ai, aj = alleles[j2], alleles[i2]
+            if i2 == j2:
+                gvals.append(DIAG[ai, ai])
+                hom_idx.append(z)
+            else:
+                gvals.append(_het_phred(base_counts, ai, aj, col_bsum))
+            z += 1
+    gvals = np.array(gvals)
+    gmin = gvals.min()
+    pl_all = np.minimum(np.floor(gvals - gmin + 0.499), 255).astype(int)
+    pls = [int(pl_all[h]) for h in hom_idx]
+    gt = int(np.argmin(pls))
+    ads = [int(adf[a] + adr[a]) for a in alleles]
+    qual = float(pls[0]) if gt != 0 else (float(pls[1]) if len(pls) > 1
+                                          else 0.0)
+
+    # ---- allele strings (bcf_call2bcf) ----
+    indelreg = 0
+    for ty in types:
+        if ty == 0:
+            continue
+        ir = est_indelreg(pos, ref, ty, inscns.get(ty) if ty > 0 else None)
+        indelreg = max(indelreg, ir)
+    ref_allele = ref[pos] + ref[pos + 1 : pos + 1 + indelreg]
+    alts = []
+    for b_ in alt_order:
+        ty = indel_types[b_]
+        if ty < 0:
+            alts.append(ref[pos] + ref[pos + 1 - ty : pos + 1 + indelreg])
+        else:
+            ins = inscns.get(ty, "")
+            alts.append(ref[pos] + ins + ref[pos + 1 : pos + 1 + indelreg])
+    return SiteRecord(pos=pos, ref=ref_allele, alts=alts, qual=qual,
+                      dp=int(depth[pos]), gt=gt, pls=pls, ads=ads)
 
 
 _str_cache: dict = {}

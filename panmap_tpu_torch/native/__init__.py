@@ -171,6 +171,13 @@ def _get_lib_locked():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_double]
     lib.pt_glocal_score.restype = ctypes.c_int
+    lib.pt_indel_sites.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64]          # cigars
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int64]        # seq, quals
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int64]        # mapq, rev, ref
+        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 11)                         # outputs
+    lib.pt_indel_sites.restype = ctypes.c_int64
     lib.pt_sketch_count.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -366,6 +373,55 @@ def glocal_score_native(ref_codes: np.ndarray, q_codes: np.ndarray,
     return int(lib.pt_glocal_score(
         ref_codes.ctypes.data, len(ref_codes), q_codes.ctypes.data,
         len(q_codes), quals.ctypes.data, bw, gapd, gape))
+
+
+def indel_sites_native(inp, codes: np.ndarray, ref_codes: np.ndarray,
+                       cand: np.ndarray, ins_cap: np.ndarray,
+                       threads: int):
+    """genotype/indel.py's per-site realignment over the candidate
+    positions ``cand`` in one call on ``threads`` host threads
+    (pt_indel_sites).  ``inp`` is the IndelInput, ``codes`` its seq blob as
+    0..4 codes, ``ref_codes`` the reference as 0..3 / 4 (N) / 5 (other),
+    ``ins_cap[i]`` a bound on the insertion consensus bases of site i.
+    Returns (jobs, dict of per-site arrays: status, n_types, types [nc, 64],
+    n_slots, slot_types [nc, 4], ins_at [nc, 64], ins_codes, n_entries,
+    e_q, e_s, e_b [nc, 250]), or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nk, nc = len(inp.rs), len(cand)
+    i64 = [np.ascontiguousarray(a, dtype=np.int64) for a in (
+        inp.rs, inp.ops, inp.lns, inp.opoff, inp.quals, inp.soff, inp.mapq,
+        cand)]
+    rs, ops, lns, opoff, quals, soff, mapq, cand = i64
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    rev = np.ascontiguousarray(inp.rev, dtype=np.int8)
+    ref_codes = np.ascontiguousarray(ref_codes, dtype=np.uint8)
+    if not (len(ops) == len(lns) == opoff[-1] and len(opoff) == nk + 1
+            and len(soff) == nk + 1 and len(codes) == len(quals)
+            and len(mapq) == len(rev) == nk):
+        raise ValueError("indel_sites_native: inconsistent IndelInput")
+    ins_off = np.zeros(nc + 1, dtype=np.int64)
+    np.cumsum(ins_cap, out=ins_off[1:])
+    out = dict(
+        status=np.empty(nc, np.int8), n_types=np.zeros(nc, np.int32),
+        types=np.zeros((nc, 64), np.int32), n_slots=np.zeros(nc, np.int32),
+        slot_types=np.zeros((nc, 4), np.int32),
+        ins_at=np.zeros((nc, 64), np.int64),
+        ins_codes=np.zeros(int(ins_off[-1]), np.uint8),
+        n_entries=np.zeros(nc, np.int32), e_q=np.zeros((nc, 250), np.uint8),
+        e_s=np.zeros((nc, 250), np.uint8), e_b=np.zeros((nc, 250), np.uint8))
+    jobs = lib.pt_indel_sites(
+        rs.ctypes.data, ops.ctypes.data, lns.ctypes.data, opoff.ctypes.data,
+        nk, codes.ctypes.data, quals.ctypes.data, soff.ctypes.data,
+        len(codes), mapq.ctypes.data, rev.ctypes.data, ref_codes.ctypes.data,
+        len(ref_codes), cand.ctypes.data, nc, ins_off.ctypes.data,
+        int(threads), *(out[k].ctypes.data for k in (
+            "status", "n_types", "types", "n_slots", "slot_types", "ins_at",
+            "ins_codes", "n_entries", "e_q", "e_s", "e_b")))
+    if (out["status"] < 0).any():
+        raise RuntimeError("pt_indel_sites: insertion capacity short")
+    return int(jobs), out
 
 
 def rolling_syncmers_native(b: np.ndarray, k: int, s: int, t: int,

@@ -3598,3 +3598,561 @@ int64_t pt_meta_kminmers(const int64_t* c_pos, const uint64_t* c_hash,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// bcftools indel realignment over a batch of candidate sites: the per-site
+// work of genotype/indel.py::_gap_prep_and_call (bam2bcf_indel.c
+// bcf_call_gap_prep + the glfgen entries of bam2bcf.c), from the covering
+// reads to the (q, strand, slot) entries, in the Python twin's order and
+// double arithmetic (built -std=c++17: no FMA contraction).  The per-site
+// tail (errmod, PL/GT, est_indelreg, the allele strings) stays in Python.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// genotype/indel.py's bcftools mpileup defaults
+constexpr int64_t IND_MIN_SUPPORT = 2;
+constexpr double IND_MIN_FRAC = 0.05;
+constexpr int64_t IND_WIN = 110;
+constexpr int64_t IND_MAX_TYPES = 64;
+constexpr int64_t IND_MAX_DEPTH = 250;
+constexpr int64_t IND_OPEN_Q = 40, IND_EXT_Q = 20, IND_TANDEM_Q = 500;
+constexpr int64_t IND_CAP_Q = 60, IND_MIN_BASEQ = 1;
+
+inline bool ind_mop(int64_t op) { return op == 0 || op == 7 || op == 8; }
+inline bool ind_qop(int64_t op) { return op == 1 || op == 4; }
+inline bool ind_dop(int64_t op) { return op == 2 || op == 3; }
+inline int64_t ind_min(int64_t a, int64_t b) { return a < b ? a : b; }
+inline int64_t ind_max(int64_t a, int64_t b) { return a > b ? a : b; }
+// a Python slice [a:b] (a, b >= 0) of a sequence of length len: [lo, hi)
+inline void ind_slice(int64_t len, int64_t a, int64_t b, int64_t& lo,
+                      int64_t& hi) {
+    lo = ind_min(a, len);
+    hi = ind_max(ind_min(b, len), lo);
+}
+
+// _tpos2qpos: query index aligned at ref tpos and the actual tpos
+void ind_tpos2qpos(int64_t rs, const int64_t* ops, const int64_t* lns,
+                   int64_t nop, int64_t tpos, bool is_left, int64_t& qpos,
+                   int64_t& tact) {
+    int64_t x = rs, y = 0, last_y = 0;
+    for (int64_t k = 0; k < nop; ++k) {
+        const int64_t op = ops[k], ln = lns[k];
+        if (ind_mop(op)) {
+            if (rs > tpos) { qpos = y; tact = rs; return; }
+            if (x + ln > tpos) { qpos = y + (tpos - x); tact = tpos; return; }
+            x += ln;
+            y += ln;
+            last_y = y;
+        } else if (ind_qop(op)) {
+            y += ln;
+        } else if (ind_dop(op)) {
+            if (x + ln > tpos) { qpos = y; tact = is_left ? x : x + ln; return; }
+            x += ln;
+        }
+    }
+    qpos = last_y;
+    tact = x;
+}
+
+// _read_state_at: (covers, indel after pos, qpos) of a read at ref pos
+bool ind_read_state_at(int64_t rs, const int64_t* ops, const int64_t* lns,
+                       int64_t nop, int64_t pos, int64_t& indel,
+                       int64_t& qpos) {
+    int64_t x = rs, y = 0;
+    for (int64_t k = 0; k < nop; ++k) {
+        const int64_t op = ops[k], ln = lns[k];
+        if (ind_mop(op)) {
+            if (x <= pos && pos < x + ln) {
+                indel = 0;
+                if (pos == x + ln - 1 && k + 1 < nop) {
+                    if (ops[k + 1] == 1) indel = lns[k + 1];
+                    else if (ops[k + 1] == 2) indel = -lns[k + 1];
+                }
+                qpos = y + (pos - x);
+                return true;
+            }
+            x += ln;
+            y += ln;
+        } else if (ind_qop(op)) {
+            y += ln;
+        } else if (ind_dop(op)) {
+            if (x <= pos && pos < x + ln) { indel = 0; qpos = y; return true; }
+            x += ln;
+        }
+    }
+    return false;
+}
+
+struct IndRep { int64_t st, en, rlen; };
+
+// find_str (bcftools str_finder.c find_STR over 0..4 codes, unpadded,
+// lower_only=0): [(start, end, rep_len)] with the containment pruning
+void ind_find_str(const uint8_t* c, int64_t n, std::vector<IndRep>& reps) {
+    reps.clear();
+    auto add_rep = [&](int64_t pos, int64_t rlen) {
+        if (!reps.empty()) {
+            const IndRep& b = reps.back();
+            if (b.st <= pos - rlen * 2 + 1 && b.en >= pos) return;
+        }
+        int64_t i1 = pos + 1 - rlen, i2 = pos + 1;
+        while (i2 < n && c[i1] == c[i2]) { ++i1; ++i2; }
+        const int64_t end = pos + (i2 - (pos + 1));
+        const int64_t start = pos - 2 * rlen + 1;
+        while (!reps.empty()) {
+            const IndRep& b = reps.back();
+            if (b.en < start) break;
+            if (b.st >= start) reps.pop_back();
+            else break;
+        }
+        reps.push_back({start, end, rlen});
+    };
+    uint32_t w = 0;
+    int64_t i = 0, j = 0;
+    for (; i < n && j < 15; ++i, ++j) {
+        w = (w << 2) | c[i];
+        for (int r = 1; r < 8; ++r) {
+            const uint32_t m = (1u << (2 * r)) - 1;
+            if (j >= 2 * r - 1 && (w & m) == ((w >> (2 * r)) & m))
+                add_rep(i, r);
+        }
+    }
+    for (; i < n; ++i) {
+        w = (w << 2) | c[i];
+        for (int r = 8; r >= 1; --r) {  // longest first, one hit
+            const uint32_t m = (1u << (2 * r)) - 1;
+            if ((w & m) == ((w >> (2 * r)) & m)) { add_rep(i, r); break; }
+        }
+    }
+}
+
+int64_t ind_est_seqq(int64_t l, int64_t l_run) {
+    const int64_t al = l < 0 ? -l : l;
+    const int64_t q = IND_OPEN_Q + IND_EXT_Q * (al - 1);
+    const int64_t qh = l_run >= 3
+        ? (int64_t)((double)(IND_TANDEM_Q * al) / (double)l_run + 0.499)
+        : 1000;
+    return ind_min(q, qh);
+}
+
+// ref codes: 0..3 ACGT (either case), 4 N, 5 any other byte
+int64_t ind_l_run(const uint8_t* ref, int64_t n, int64_t pos) {
+    if (pos + 1 >= n) return 1;
+    const uint8_t c = ref[pos + 1];
+    if (c > 3) return 1;
+    int64_t i = pos + 2;
+    while (i < n && ref[i] == c) ++i;
+    const int64_t l_run = i;
+    i = pos;
+    while (i >= 0 && ref[i] == c) --i;
+    return l_run - (i + 1);
+}
+
+struct IndReads {
+    const int64_t *rs, *ops, *lns, *opoff, *quals, *soff, *mapq;
+    const uint8_t* codes;  // 0..4 per base of the oriented seq blob
+    const int8_t* rev;
+    int64_t nk, nseq;
+    std::vector<int64_t> ends;  // rs + the ref-advancing ops' lengths
+    std::vector<uint8_t> skip;  // the read has a ref skip (op 3)
+    bool sorted = true;         // rs non-decreasing: windowed overlap scan
+    int64_t max_span = 0;
+    const uint8_t* ref;
+    int64_t n;
+};
+
+struct IndOut {
+    int8_t* status;
+    int32_t *n_types, *types, *n_slots, *slot_types, *n_entries;
+    const int64_t* ins_off;
+    int64_t* ins_at;
+    uint8_t *ins_codes, *e_q, *e_s, *e_b;
+};
+
+struct IndScratch {
+    std::vector<int64_t> pr, pind, pq, types, cns_ref, cns_alt, cnt, ins_len,
+        ins_pos, qbeg, tbeg0, qpos_t, qend, tend, score, aux, sc, sumq, order;
+    std::vector<uint8_t> cons, ins, ref2, seg, qq;
+    std::vector<IndRep> reps;
+};
+
+// one candidate site: status 1 with its types, slots, insertion consensus
+// and entries, else 0 (where _gap_prep_and_call returns None before its
+// errmod); -1 if the insertion capacity was short.  Returns the jobs scored.
+int64_t ind_site(const IndReads& R, int64_t s, int64_t pos, IndScratch& S,
+                 const IndOut& O) {
+    O.status[s] = 0;
+    const int64_t n = R.n;
+    const uint8_t* ref = R.ref;
+    // ---- covering reads in row order, capped (bcftools --max-idepth) ----
+    S.pr.clear(); S.pind.clear(); S.pq.clear();
+    int64_t r0 = 0, r1 = R.nk;
+    if (R.sorted) {
+        r0 = std::lower_bound(R.rs, R.rs + R.nk, pos - R.max_span + 1) - R.rs;
+        r1 = std::upper_bound(R.rs, R.rs + R.nk, pos) - R.rs;
+    }
+    for (int64_t r = r0; r < r1; ++r) {
+        if (!(R.rs[r] <= pos && pos < R.ends[r])) continue;
+        const int64_t a = R.opoff[r], b = R.opoff[r + 1];
+        int64_t indel = 0, qpos = 0;
+        if (ind_read_state_at(R.rs[r], R.ops + a, R.lns + a, b - a, pos,
+                              indel, qpos)) {
+            S.pr.push_back(r); S.pind.push_back(indel); S.pq.push_back(qpos);
+            if ((int64_t)S.pr.size() >= IND_MAX_DEPTH) break;
+        }
+    }
+    const int64_t N = S.pr.size();
+    if (N == 0) return 0;
+    // ---- bcf_cgp_find_types ----
+    S.types.clear();
+    int64_t n_alt = 0;
+    for (int64_t K = 0; K < N; ++K)
+        if (S.pind[K] != 0) { ++n_alt; S.types.push_back(S.pind[K]); }
+    if (n_alt == 0) return 0;
+    if (n_alt < IND_MIN_SUPPORT || (double)n_alt / (double)N < IND_MIN_FRAC)
+        return 0;
+    S.types.push_back(0);
+    std::sort(S.types.begin(), S.types.end());
+    S.types.erase(std::unique(S.types.begin(), S.types.end()), S.types.end());
+    const int64_t T = S.types.size();
+    if (T < 2 || T >= IND_MAX_TYPES) return 0;
+    // N-run guard
+    int64_t max_rd_len = 0;
+    for (int64_t K = 0; K < N; ++K)
+        max_rd_len = ind_max(max_rd_len, R.soff[S.pr[K] + 1] - R.soff[S.pr[K]]);
+    {
+        int64_t lo, hi;
+        ind_slice(n, pos, ind_min(pos + ind_min(2 * IND_WIN, max_rd_len), n),
+                  lo, hi);
+        int64_t nn = 0;
+        for (int64_t i = lo; i < hi; ++i) nn += ref[i] == 4;
+        if (hi > lo && 2 * nn > hi - lo) return 0;
+    }
+    const int64_t ref_type =
+        std::find(S.types.begin(), S.types.end(), 0) - S.types.begin();
+    // ---- window ----
+    const int64_t left = ind_max(pos - IND_WIN, 0);
+    int64_t right = pos + IND_WIN;
+    if (S.types[0] < 0) right -= S.types[0];
+    right = ind_min(right, n);
+    const int64_t L = right - left;
+    // ---- per-sample consensus (bcf_cgp_ref_sample; one sample) ----
+    S.cns_ref.assign(L, 0);
+    S.cns_alt.assign(L, 0);
+    for (int64_t K = 0; K < N; ++K) {
+        const int64_t r = S.pr[K];
+        int64_t x = R.rs[r], y = 0;
+        const int64_t base = R.soff[r];
+        for (int64_t k = R.opoff[r]; k < R.opoff[r + 1]; ++k) {
+            const int64_t op = R.ops[k], ln = R.lns[k];
+            if (ind_mop(op)) {
+                if (x + ln >= left) {
+                    const int64_t j0 = ind_max(left - x, 0);
+                    const int64_t j1 = ind_min(right - x, ln);
+                    for (int64_t j = j0; j < j1; ++j) {
+                        const int64_t at = base + y + j;
+                        const uint8_t code = at < R.nseq ? R.codes[at] : 4;
+                        const int64_t i = x + j - left;
+                        if (code < 4 && code == ref[left + i]) ++S.cns_ref[i];
+                        else ++S.cns_alt[i];
+                    }
+                }
+                x += ln;
+                y += ln;
+            } else if (ind_dop(op)) {
+                x += ln;
+            } else if (ind_qop(op)) {
+                y += ln;
+            }
+            if (x > right) break;
+        }
+    }
+    // deepest and 2nd-deepest ALT loci (>= comparisons as in the C walk)
+    int64_t m_alt = 0, m_ref = 0, m_i = -1, m2_alt = 0, m2_ref = 0, m2_i = -1;
+    for (int64_t i = 0; i < L; ++i) {
+        if (S.cns_alt[i] >= m_alt) {
+            m2_alt = m_alt; m2_ref = m_ref; m2_i = m_i;
+            m_alt = S.cns_alt[i]; m_ref = S.cns_ref[i]; m_i = i;
+        } else if (S.cns_alt[i] >= m2_alt) {
+            m2_alt = S.cns_alt[i]; m2_ref = S.cns_ref[i]; m2_i = i;
+        }
+    }
+    if (m_alt + m_ref > 0 && (double)m_ref / (double)(m_ref + m_alt) >= 0.7)
+        m_i = -1;
+    if (m2_alt + m2_ref > 0 &&
+        (double)m2_ref / (double)(m2_ref + m2_alt) >= 0.7)
+        m2_i = -1;
+    S.cons.resize(L);
+    for (int64_t i = 0; i < L; ++i)
+        S.cons[i] = ref[left + i] < 4 ? ref[left + i] : 4;
+    if (m_i >= 0) S.cons[m_i] = 4;
+    if (m2_i >= 0) S.cons[m2_i] = 4;
+    const int64_t l_run = ind_l_run(ref, n, pos);
+    // ---- insertion consensus (bcf_cgp_calc_cons) ----
+    const int64_t ins0 = O.ins_off[s], ins_cap = O.ins_off[s + 1] - ins0;
+    S.ins.clear();
+    S.ins_len.assign(T, 0);
+    std::vector<int64_t>& ins_at = S.ins_pos;  // type t's string in S.ins
+    ins_at.assign(T, 0);
+    for (int64_t t = 0; t < T; ++t) {
+        const int64_t ty = S.types[t];
+        if (ty <= 0) continue;
+        S.cnt.assign(ty * 5, 0);
+        for (int64_t K = 0; K < N; ++K) {
+            if (S.pind[K] != ty) continue;
+            const int64_t r = S.pr[K], base = R.soff[r], end = R.soff[r + 1];
+            for (int64_t k = 1; k <= ty; ++k) {
+                const int64_t at = base + S.pq[K] + k;
+                const int64_t c = at < end ? R.codes[at] : 4;
+                ++S.cnt[(k - 1) * 5 + ind_min(c, 4)];
+            }
+        }
+        const size_t at0 = S.ins.size();
+        bool dead = false;
+        for (int64_t j = 0; j < ty; ++j) {
+            const int64_t* row = &S.cnt[j * 5];
+            int64_t mk = 0;
+            for (int64_t c = 1; c < 5; ++c)
+                if (row[c] > row[mk]) mk = c;
+            if (row[mk] <= 0) mk = 4;
+            if (mk == 4) { S.types[t] = 0; dead = true; break; }  // holds N
+            S.ins.push_back((uint8_t)mk);
+        }
+        if (dead) { S.ins.resize(at0); continue; }
+        ins_at[t] = at0;
+        S.ins_len[t] = ty;
+    }
+    if ((int64_t)S.ins.size() > ins_cap) { O.status[s] = -1; return 0; }
+    // ---- per (read x type) realignment scores ----
+    S.qbeg.resize(N); S.tbeg0.resize(N); S.qpos_t.resize(N);
+    S.qend.resize(N); S.tend.resize(N);
+    for (int64_t K = 0; K < N; ++K) {  // type-independent read geometry
+        const int64_t r = S.pr[K], a = R.opoff[r], nop = R.opoff[r + 1] - a;
+        int64_t q, tb, tmp;
+        ind_tpos2qpos(R.rs[r], R.ops + a, R.lns + a, nop, left, false, q, tb);
+        S.qbeg[K] = q;
+        S.tbeg0[K] = tb;
+        ind_tpos2qpos(R.rs[r], R.ops + a, R.lns + a, nop, pos, false, q, tmp);
+        S.qpos_t[K] = q - S.qbeg[K];
+        ind_tpos2qpos(R.rs[r], R.ops + a, R.lns + a, nop, right, true, q, tb);
+        S.qend[K] = q;
+        S.tend[K] = tb;
+    }
+    S.score.assign(N * T, 0xFFFFFF);
+    int64_t jobs = 0;
+    for (int64_t t = 0; t < T; ++t) {
+        const int64_t ty = S.types[t];
+        // ref2: the consensus with the type applied at pos
+        S.ref2.assign(S.cons.begin(), S.cons.begin() + (pos - left + 1));
+        int64_t j;
+        if (ty > 0) {
+            S.ref2.insert(S.ref2.end(), S.ins.begin() + ins_at[t],
+                          S.ins.begin() + ins_at[t] + ty);
+            j = pos + 1;
+        } else {
+            j = pos + 1 - ind_min(ty, 0);  // deletion skips -ty bases
+        }
+        int64_t lo, hi;
+        ind_slice(L, j - left, L, lo, hi);
+        S.ref2.insert(S.ref2.end(), S.cons.begin() + lo, S.cons.begin() + hi);
+        const int64_t n2 = S.ref2.size();
+        for (int64_t K = 0; K < N; ++K) {
+            const int64_t r = S.pr[K];
+            if (R.skip[r]) continue;  // BAM_CREF_SKIP
+            const int64_t qbeg = S.qbeg[K], qend = S.qend[K], tend = S.tend[K];
+            int64_t tbeg = S.tbeg0[K];
+            if (ty < 0) tbeg = ind_max(tbeg + ty, left);
+            if (qend <= qbeg) continue;
+            const int64_t base = R.soff[r];
+            int64_t qlo, qhi;
+            ind_slice(R.nseq, base + qbeg, base + qend, qlo, qhi);
+            if (tend <= tbeg) continue;  // read within a deletion: 0xffffff
+            const int64_t seg_lo = tbeg - left, seg_len = tend - tbeg + ty;
+            if (seg_len <= 0) continue;
+            ind_slice(n2, seg_lo, seg_lo + seg_len, lo, hi);
+            S.seg.assign(S.ref2.begin() + lo, S.ref2.begin() + hi);
+            S.seg.resize(seg_len, 4);  // the C buffer's N padding
+            S.qq.resize(qhi - qlo);
+            for (int64_t i = qlo; i < qhi; ++i) {
+                const int64_t v = R.quals[i];
+                S.qq[i - qlo] = (uint8_t)(v < 7 ? 7 : (v > 30 ? 30 : v));
+            }
+            const int64_t sc = pt_glocal_score(
+                S.seg.data(), (int)seg_len, R.codes + qlo, (int)(qhi - qlo),
+                S.qq.data(), (int)((ty < 0 ? -ty : ty) + 3), 1e-4, 1e-2);
+            ++jobs;
+            if (sc < 0) continue;
+            const int64_t lnorm =
+                (int64_t)(100.0 * (double)sc / (double)(qend - qbeg) + 0.499);
+            int64_t sp = (sc << 8) | ind_min(255, lnorm);
+            // STR adjustment over the aligned consensus segment
+            int64_t iscore = 0;
+            const int64_t r_start = R.rs[r], r_end = R.ends[r] - 1;
+            const int64_t qt = S.qpos_t[K];
+            ind_find_str(S.seg.data(), seg_len, S.reps);
+            for (const IndRep& p : S.reps) {
+                if (p.st <= qt && qt <= p.en) {
+                    iscore += (p.en - p.st) / p.rlen;
+                    if (p.st + tbeg <= r_start || p.en + tbeg >= r_end)
+                        iscore += 2 * (p.en - p.st);
+                }
+            }
+            const int64_t l2 =
+                (int64_t)((double)(sp & 0xFF) * 0.8 + (double)(iscore * 2));
+            sp = (sp & ~(int64_t)0xFF) | ind_min(255, l2);
+            S.score[K * T + t] = sp;
+        }
+    }
+    // ---- compute_indelQ ----
+    S.aux.assign(N, 0);
+    S.sumq.assign(T, 0);
+    std::vector<int64_t>& sc = S.sc;
+    sc.resize(T);
+    for (int64_t K = 0; K < N; ++K) {
+        for (int64_t t = 0; t < T; ++t) sc[t] = S.score[K * T + t] << 6 | t;
+        std::sort(sc.begin(), sc.end());
+        int64_t indelq, seqq;
+        if ((sc[0] & 0x3F) == ref_type) {
+            indelq = (sc[1] >> 14) - (sc[0] >> 14);
+            seqq = ind_est_seqq(S.types[sc[1] & 0x3F], l_run);
+        } else {
+            int64_t tt = 0;
+            while ((sc[tt] & 0x3F) != ref_type) ++tt;
+            indelq = (sc[tt] >> 14) - (sc[0] >> 14);
+            seqq = ind_est_seqq(S.types[sc[0] & 0x3F], l_run);
+        }
+        const int64_t tmp = (sc[0] >> 6) & 0xFF;
+        indelq = tmp > 111 ? 0
+            : (int64_t)((1.0 - (double)tmp / 111.0) * (double)indelq + 0.499);
+        indelq = ind_min(ind_min(indelq, seqq), 255);
+        seqq = ind_min(seqq, 255);
+        S.aux[K] = (sc[0] & 0x3F) << 16 | seqq << 8 | indelq;
+        S.sumq[sc[0] & 0x3F] += ind_min(indelq, seqq);
+    }
+    // types by the packed key (sumq<<6 | t) descending, REF moved to slot 0
+    S.order.resize(T);
+    for (int64_t t = 0; t < T; ++t) S.order[t] = t;
+    std::sort(S.order.begin(), S.order.end(), [&](int64_t a, int64_t b) {
+        return ((S.sumq[a] << 6) | a) > ((S.sumq[b] << 6) | b);
+    });
+    S.order.erase(std::find(S.order.begin(), S.order.end(), ref_type));
+    S.order.insert(S.order.begin(), ref_type);
+    const int64_t n_slots = ind_min(4, T);
+    int64_t n_alt_reads = 0;
+    for (int64_t K = 0; K < N; ++K) {
+        const int64_t t0 = S.aux[K] >> 16 & 0x3F;
+        int64_t jj = 4;
+        for (int64_t q = 0; q < n_slots; ++q)
+            if (S.order[q] == t0) { jj = q; break; }
+        S.aux[K] = jj << 16 | (jj == 4 ? 0 : (S.aux[K] & 0xFFFF));
+        if (jj > 0) ++n_alt_reads;
+    }
+    if (n_alt_reads == 0) return jobs;
+    // ---- glfgen entries (indel mode, bam2bcf.c:309-470) ----
+    int64_t ne = 0;
+    const int64_t e0 = s * IND_MAX_DEPTH;
+    for (int64_t K = 0; K < N; ++K) {
+        const int64_t r = S.pr[K];
+        int64_t b_slot = S.aux[K] >> 16 & 0x3F;
+        int64_t q = S.aux[K] & 0xFF, seqq = q;
+        const int64_t base = R.soff[r], rl = R.soff[r + 1] - R.soff[r];
+        if (S.pind[K] == 0 && (2 * q < N || N > 20)) {
+            b_slot = 0;
+            q = rl ? R.quals[base + ind_min(S.pq[K], rl - 1)] : 0;
+            seqq = (3 * seqq + 2 * q) / 8;  // quals >= 0
+        }
+        if (N > 20 && seqq > 40) seqq = 40;
+        if (q < IND_MIN_BASEQ) continue;
+        const int64_t mapq = ind_min(R.mapq[r], IND_CAP_Q);
+        q = ind_min(q, seqq);
+        q = ind_min(q, mapq);
+        q = ind_max(4, ind_min(q, 63));
+        if (b_slot >= 4) continue;
+        O.e_q[e0 + ne] = (uint8_t)q;
+        O.e_s[e0 + ne] = (uint8_t)R.rev[r];
+        O.e_b[e0 + ne] = (uint8_t)b_slot;
+        ++ne;
+    }
+    if (ne == 0) return jobs;
+    O.status[s] = 1;
+    O.n_entries[s] = (int32_t)ne;
+    O.n_types[s] = (int32_t)T;
+    for (int64_t t = 0; t < T; ++t) {
+        O.types[s * IND_MAX_TYPES + t] = (int32_t)S.types[t];
+        O.ins_at[s * IND_MAX_TYPES + t] = ins0 + ins_at[t];
+    }
+    O.n_slots[s] = (int32_t)n_slots;
+    for (int64_t q = 0; q < n_slots; ++q)
+        O.slot_types[s * 4 + q] = (int32_t)S.types[S.order[q]];
+    std::copy(S.ins.begin(), S.ins.end(), O.ins_codes + ins0);
+    return jobs;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The realignment of genotype/indel.py over the candidate positions cand
+// (sorted, from call_indels_realign's array pass), across n_threads host
+// threads that take chunks of consecutive sites; each site writes its own
+// slots, so the output does not depend on the thread count.  Reads: the
+// IndelInput arrays (codes: the seq blob as 0..4 codes, nseq long); ref:
+// 0..3 ACGT, 4 N, 5 other.  Per site s: status (1: entries; 0: none; -1:
+// ins_off's capacity was short), its types after the N discard (n_types,
+// types[s*64..]), the types of its slots (REF first; n_slots,
+// slot_types[s*4..]), each positive type's insertion consensus at
+// ins_codes[ins_at[s*64+t]..+type] (inside [ins_off[s], ins_off[s+1])),
+// and its entries (q, strand, slot) at [s*250, s*250+n_entries[s]).
+// Returns the realignments scored.
+int64_t pt_indel_sites(
+    const int64_t* rs, const int64_t* ops, const int64_t* lns,
+    const int64_t* opoff, int64_t nk, const uint8_t* codes,
+    const int64_t* quals, const int64_t* soff, int64_t nseq,
+    const int64_t* mapq, const int8_t* rev, const uint8_t* ref, int64_t n,
+    const int64_t* cand, int64_t nc, const int64_t* ins_off, int n_threads,
+    int8_t* status, int32_t* n_types, int32_t* types, int32_t* n_slots,
+    int32_t* slot_types, int64_t* ins_at, uint8_t* ins_codes,
+    int32_t* n_entries, uint8_t* e_q, uint8_t* e_s, uint8_t* e_b) {
+    IndReads R;
+    R.rs = rs; R.ops = ops; R.lns = lns; R.opoff = opoff; R.quals = quals;
+    R.soff = soff; R.mapq = mapq; R.codes = codes; R.rev = rev; R.nk = nk;
+    R.nseq = nseq; R.ref = ref; R.n = n;
+    R.ends.resize(nk);
+    R.skip.assign(nk, 0);
+    for (int64_t r = 0; r < nk; ++r) {
+        int64_t span = 0;
+        for (int64_t k = opoff[r]; k < opoff[r + 1]; ++k) {
+            if (ind_mop(ops[k]) || ind_dop(ops[k])) span += lns[k];
+            if (ops[k] == 3) R.skip[r] = 1;
+        }
+        R.ends[r] = rs[r] + span;
+        R.max_span = ind_max(R.max_span, span);
+        if (r > 0 && rs[r] < rs[r - 1]) R.sorted = false;
+    }
+    IndOut O{status, n_types, types, n_slots, slot_types, n_entries,
+             ins_off, ins_at, ins_codes, e_q, e_s, e_b};
+    if (n_threads < 1) n_threads = 1;
+    if (n_threads > nc) n_threads = nc > 0 ? (int)nc : 1;
+    const int64_t CHUNK = 16;
+    std::atomic<int64_t> next{0};
+    std::vector<int64_t> jobs(n_threads, 0);
+    auto work = [&](int ti) {
+        IndScratch S;
+        for (;;) {
+            const int64_t c0 = next.fetch_add(CHUNK);
+            if (c0 >= nc) break;
+            const int64_t c1 = ind_min(c0 + CHUNK, nc);
+            for (int64_t s = c0; s < c1; ++s)
+                jobs[ti] += ind_site(R, s, cand[s], S, O);
+        }
+    };
+    std::vector<std::thread> threads;
+    for (int ti = 1; ti < n_threads; ++ti) threads.emplace_back(work, ti);
+    work(0);
+    for (auto& th : threads) th.join();
+    int64_t total = 0;
+    for (int64_t j : jobs) total += j;
+    return total;
+}
+
+}  // extern "C"

@@ -909,7 +909,9 @@ def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
                    best_node: str, placed, device=None):
     """Call variants from the placed reads and write <out>.vcf.  The
     per-column pileup tallies run on ``device`` as --device-pileup says
-    (resolve_device_pileup); with ``device`` None they run on the host."""
+    (resolve_device_pileup); with ``device`` None they run on the host.
+    The indel realignment runs on ``cfg.threads`` host threads (0: the
+    native library's default)."""
     if cfg.no_mutation_spectrum:
         phred = None  # main.cpp:2450: gate-only filtering, no prior
     elif cfg.mutation_matrix:
@@ -926,10 +928,12 @@ def run_genotyping(cfg: PipelineConfig, idx: IndexArrays, ref: str,
                  else resolve_device_pileup(cfg.device_pileup, device))
     if isinstance(placed, ColumnarReads):
         records = pileup_call_columnar(ref, placed, spectrum=phred,
-                                       device_tally=dev_tally)
+                                       device_tally=dev_tally,
+                                       indel_threads=cfg.threads)
     else:
         records = pileup_call(ref, placed, baq=cfg.baq, spectrum=phred,
-                              device_tally=dev_tally)
+                              device_tally=dev_tally,
+                              indel_threads=cfg.threads)
     with trace.span("genotype.vcf"):
         final = apply_spectrum(records, phred, cfg.min_depth, cfg.min_qual)
         write_vcf(cfg.output + ".vcf", best_node, len(ref), final)
@@ -1002,6 +1006,7 @@ def _batch_host_stages(args):
     scfg = copy.copy(_BATCH_CTX["cfg"])
     scfg.reads1, scfg.reads2, scfg.output = reads1, reads2, prefix
     scfg.log = lambda *a, **k: None
+    scfg.threads = 1  # the pool's workers already fill the cores
     ref, placed = run_alignment(scfg, tree, best_id, None)
     if scfg.stop != "align":
         final = run_genotyping(scfg, idx, ref, best_id, placed)

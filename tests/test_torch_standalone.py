@@ -349,10 +349,21 @@ DIFFERS = {
                                 "cache",
         "_pileup_finish": "device_tally is the device (None: host), passed "
                           "on to tally_columns_device; genotype.columns, "
-                          ".snps and .indels spans",
-        "pileup_call": "device_tally is a device or None, not a bool",
+                          ".snps and .indels spans; indel_threads passed "
+                          "on to the indel realignment",
+        "pileup_call": "device_tally is a device or None, not a bool; "
+                       "indel_threads",
         "pileup_call_columnar": "device_tally is a device or None, not a "
-                                "bool; a genotype.columns span",
+                                "bool; a genotype.columns span; "
+                                "indel_threads",
+        "_indel_records": "passes the realignment's thread count on",
+    },
+    "genotype/indel.py": {
+        "call_indels_realign":
+            "with the native library the per-site work is one threaded "
+            "call (pt_indel_sites) and _site_record finishes each site; "
+            "the per-site walk over _gap_prep_and_call is _realign_py, run "
+            "without the library; counts on the genotype.indels span",
     },
     "meta/assign.py": {
         name: "takes the device: the fast route's batched scorer is "
@@ -390,10 +401,12 @@ DIFFERS = {
                                "policy, no backend warm-up); the single "
                                "sample is _run_sample, a run span",
         "run_genotyping": "takes the device and passes it to the tally; "
-                          "genotype and genotype.vcf spans",
+                          "genotype and genotype.vcf spans; cfg.threads "
+                          "to the indel realignment",
         "_batch_host_stages": "passes no device down (host DP, host tally) "
                               "instead of setting PANMAP_PALLAS=0; a "
-                              "consensus span",
+                              "consensus span; cfg.threads 1 (the pool "
+                              "fills the cores)",
         "run_batch": "one TorchPlacer for the run, the device and an "
                      "in-memory index / tree as arguments, no backend "
                      "warm-up; a run span; its loop is "
@@ -413,7 +426,7 @@ CARRIED = {
     "__init__.py": 1,
     "__main__.py": 1, "align/adna.py": 5, "align/batch.py": 10,
     "align/bwt.py": 13, "align/core.py": 15, "align/longread.py": 6,
-    "genotype/baq.py": 9, "genotype/caller.py": 25, "genotype/indel.py": 10,
+    "genotype/baq.py": 9, "genotype/caller.py": 24, "genotype/indel.py": 9,
     "index/builder.py": 28, "io/bam.py": 15, "io/capnp.py": 33,
     "io/fastq.py": 11, "io/index_io.py": 3, "io/panman.py": 17,
     "io/refidx.py": 14, "meta/assign.py": 7, "meta/driver.py": 2, "meta/engine.py": 39,
