@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import math
 import os
-from collections import defaultdict
 from dataclasses import dataclass
 import numpy as np
 import torch
@@ -566,7 +565,6 @@ def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
     # matters because the errmod is order-dependent on q-key ties.
     depth = np.zeros(n, dtype=np.int64)
     seg_p0, seg_q0, seg_len, seg_rid = [], [], [], []
-    indel_events = []  # (anchor, rid, ("I", seq) | ("D", len), event_qual)
     for rid, r in enumerate(kept):
         rpos = r.rs
         qpos = r.qs
@@ -578,30 +576,9 @@ def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
                 seg_rid.append(rid)
                 rpos += ln
                 qpos += ln
-            elif op == "I":
-                if 0 < rpos <= n and ln > 0:
-                    qev = min(r.quals[qpos : qpos + ln], default=0)
-                    # left-align: the same haplotype can be encoded at
-                    # several anchors; normalize so supports merge (VCF /
-                    # bcftools left-aligned convention)
-                    a = rpos - 1
-                    ins = r.seq[qpos : qpos + ln]
-                    while a >= 1 and ins[-1] == ref[a]:
-                        ins = ref[a] + ins[:-1]
-                        a -= 1
-                    indel_events.append((a, rid, ("I", ins), qev))
-                qpos += ln
-            elif op == "S":
+            elif op in ("I", "S"):
                 qpos += ln
             elif op in ("D", "N"):
-                if op == "D" and 0 < rpos and rpos + ln <= n:
-                    qa = r.quals[qpos - 1] if qpos > 0 else 0
-                    qb = r.quals[qpos] if qpos < len(r.quals) else qa
-                    s0 = rpos
-                    while s0 >= 2 and ref[s0 - 1] == ref[s0 + ln - 1]:
-                        s0 -= 1
-                    indel_events.append((s0 - 1, rid, ("D", ln),
-                                         min(qa, qb)))
                 rpos += ln
 
     if not seg_len:
@@ -649,9 +626,9 @@ def pileup_call(ref: str, reads: list, max_depth: int = MAX_DEPTH,
         soff=np.concatenate(([0], np.cumsum(rlens))).astype(np.int64),
         mapq=mqs, rev=revs)
     return _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
-                          indel_events, rlens, Qcat, Scat, mqs, revs,
-                          pairedok, qnames, rs_arr, indel_input=indel_input,
-                          spectrum=spectrum, device_tally=device_tally,
+                          rlens, Qcat, Scat, mqs, revs, pairedok, qnames,
+                          rs_arr, indel_input, spectrum=spectrum,
+                          device_tally=device_tally,
                           indel_threads=indel_threads)
 
 
@@ -778,36 +755,6 @@ def pileup_call_columnar(ref: str, cols: ColumnarReads,
         mqs = np.minimum(cols.mapq[kept], 60).astype(np.int64)
         revs = cols.rev[kept].astype(np.int8)
 
-        # indel events (rare: python loop only over I/D ops, as the object path)
-        indel_events = []
-        quals_of = Qcat  # kept-concatenated, offsets roffs
-        idl = np.flatnonzero((ops == 1) | ((ops == 2) & (lns > 0)))
-        for oi in idl.tolist():
-            rid = int(row_of[oi])
-            ln = int(lns[oi])
-            rpos = int(rpos0[oi])
-            qpos = int(qpos0[oi])
-            base = int(roffs[rid])
-            rl = int(lq[rid])
-            if ops[oi] == 1:  # insertion
-                if 0 < rpos <= n and ln > 0:
-                    w = quals_of[base + qpos : base + qpos + ln]
-                    qev = int(w.min()) if len(w) else 0
-                    a = rpos - 1
-                    ins = Scat[base + qpos : base + qpos + ln].tobytes().decode()
-                    while a >= 1 and ins[-1] == ref[a]:
-                        ins = ref[a] + ins[:-1]
-                        a -= 1
-                    indel_events.append((a, rid, ("I", ins), qev))
-            else:  # deletion
-                if 0 < rpos and rpos + ln <= n:
-                    qa = int(quals_of[base + qpos - 1]) if qpos > 0 else 0
-                    qb = int(quals_of[base + qpos]) if qpos < rl else qa
-                    s0 = rpos
-                    while s0 >= 2 and ref[s0 - 1] == ref[s0 + ln - 1]:
-                        s0 -= 1
-                    indel_events.append((s0 - 1, rid, ("D", ln), min(qa, qb)))
-
         pairedok = (np.full(nk, cols.paired) & cols.proper[kept]
                     if cols.paired else np.zeros(nk, dtype=bool))
         qnames = [cols.qnames[i] for i in kept.tolist()]
@@ -821,9 +768,8 @@ def pileup_call_columnar(ref: str, cols: ColumnarReads,
         pair_kept = (cols.pair_ids[kept]
                      if cols.pair_ids is not None and cols.paired else None)
     return _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
-                          indel_events, lq, Qcat, Scat, mqs, revs,
-                          pairedok, qnames, cols.rs[kept],
-                          indel_input=indel_input, pair_ids=pair_kept,
+                          lq, Qcat, Scat, mqs, revs, pairedok, qnames,
+                          cols.rs[kept], indel_input, pair_ids=pair_kept,
                           spectrum=spectrum, device_tally=device_tally,
                           indel_threads=indel_threads)
 
@@ -878,16 +824,19 @@ def tally_columns_device(col_id, g_q, g_s, g_b, ncol, device):
 
 
 def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
-                   indel_events, rlens, Qcat, Scat, mqs, revs, pairedok,
-                   qnames, rs_arr, indel_input=None, pair_ids=None,
-                   spectrum=_NOPRUNE, device_tally=None, indel_threads=0):
+                   rlens, Qcat, Scat, mqs, revs, pairedok, qnames, rs_arr,
+                   indel_input, pair_ids=None, spectrum=_NOPRUNE,
+                   device_tally=None, indel_threads=0):
     """Shared pileup back half: overlap tweaks, quality shaping, per-column
     errmod + tallies, SNP calling, indel calling.  Consumed by both the
     object front-end (pileup_call) and the columnar one
     (pileup_call_columnar).  ``device_tally`` is the device the per-column
     tallies run on (resolve_device_pileup), None for the host bincounts;
-    ``indel_threads`` the host threads of the indel realignment (<= 0: the
-    native library's default)."""
+    ``indel_input`` the kept reads as the indel realignment reads them
+    (genotype/indel.py::call_indels_realign), ``indel_threads`` its host
+    threads (<= 0: the native library's default)."""
+    from .indel import call_indels_realign
+
     with trace.span("genotype.columns"):
         records: list = []
         roffs = np.concatenate(([0], np.cumsum(rlens)))
@@ -921,10 +870,9 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
         order = np.argsort(g_p, kind="stable")
         g_p, g_q, g_s, g_b = g_p[order], g_q[order], g_s[order], g_b[order]
     if len(g_p) == 0:
-        with trace.span("genotype.indels", events=len(indel_events)):
-            records.extend(_indel_records(ref, n, indel_events, flat_p,
-                                          flat_rid, q, keep_q, revs, mqs,
-                                          depth, indel_input, indel_threads))
+        with trace.span("genotype.indels"):
+            records.extend(call_indels_realign(ref, indel_input, depth,
+                                               _ERRMOD, indel_threads))
         records.sort(key=lambda rec: rec.pos)
         return records
     with trace.span("genotype.columns") as sp:
@@ -1021,141 +969,11 @@ def _pileup_finish(ref, ref_idx, n, depth, flat_p, flat_qi, flat_rid,
                 )
             )
         sp.count("columns_called", len(snp_cols))
-    with trace.span("genotype.indels", events=len(indel_events)):
-        records.extend(_indel_records(ref, n, indel_events, flat_p, flat_rid,
-                                      q, keep_q, revs, mqs, depth,
-                                      indel_input, indel_threads))
+    with trace.span("genotype.indels"):
+        records.extend(call_indels_realign(ref, indel_input, depth, _ERRMOD,
+                                           indel_threads))
     records.sort(key=lambda rec: rec.pos)
     return records
-
-
-
-
-def _indel_records(ref, n, indel_events, flat_p, flat_rid, q, keep_q, revs,
-                   mqs, depth, indel_input, threads=0):
-    """Indel dispatch: the bcftools-realignment caller (genotype/indel.py)
-    by default; the simplified left-normalized CIGAR-event caller
-    (_call_indels) as the legacy oracle (PANMAP_TPU_LEGACY_INDELS=1 or no
-    IndelInput available).  ``threads``: the realignment's host threads."""
-    import os as _os
-
-    if (indel_input is None
-            or _os.environ.get("PANMAP_TPU_LEGACY_INDELS") == "1"):
-        return _call_indels(ref, n, indel_events, flat_p, flat_rid, q,
-                            keep_q, revs, mqs, depth)
-    from .indel import call_indels_realign
-
-    return call_indels_realign(ref, indel_input, depth, _ERRMOD, threads)
-
-def _call_indels(ref: str, n: int, indel_events: list, flat_p, flat_rid,
-                 flat_q, keep_q, revs, mqs, depth):
-    """Haploid indel calls from CIGAR I/D events (bcftools calls indels via
-    bam2bcf_indel.c's type-collection + per-read realignment; this is the
-    SIMPLIFIED equivalent documented in PARITY.md: per anchor the dominant
-    indel type competes against the no-indel reads through the same
-    revised-MAQ errmod used for SNPs, with the event quality = min base
-    quality inside/flanking the event).  VCF left-anchored convention:
-    insertion REF=anchor ALT=anchor+seq, deletion REF=anchor+run ALT=anchor."""
-    if not indel_events:
-        return []
-    by_anchor: dict = defaultdict(dict)  # anchor -> rid -> [(typekey, qev)]
-    for anchor, rid, tk, qev in indel_events:
-        by_anchor[anchor].setdefault(rid, []).append((tk, qev))
-    anchors = np.array(sorted(by_anchor), dtype=np.int64)
-    sel = np.isin(flat_p, anchors)
-    sp_p = flat_p[sel]
-    sp_rid = flat_rid[sel]
-    sp_q = flat_q[sel]
-    sp_keep = keep_q[sel]
-    order = np.argsort(sp_p, kind="stable")  # pileup order within anchor
-    sp_p, sp_rid, sp_q, sp_keep = (sp_p[order], sp_rid[order], sp_q[order],
-                                   sp_keep[order])
-    lo_b = np.searchsorted(sp_p, anchors, side="left")
-    hi_b = np.searchsorted(sp_p, anchors, side="right")
-    recs = []
-    for ai, anchor in enumerate(anchors.tolist()):
-        evmap = by_anchor[anchor]
-        support: dict = defaultdict(lambda: [0, 0])
-        for _rid, evs in evmap.items():
-            for tk, qev in evs:
-                c = support[tk]
-                c[0] += 1
-                c[1] += qev
-        tk_dom = max(support.items(),
-                     key=lambda kv: (kv[1][0], kv[1][1], kv[0]))[0]
-        if tk_dom[0] == "D" and anchor + 1 + tk_dom[1] > n:
-            continue
-
-        def dom_qual(evs):
-            """Event quality of the dominant type, or None."""
-            for tk, qev in evs:
-                if tk == tk_dom:
-                    return qev
-            return None
-
-        q_list, s_list, b_list = [], [], []
-        ad = [0, 0]
-        seen_rids = set()
-        for i in range(int(lo_b[ai]), int(hi_b[ai])):
-            rid = int(sp_rid[i])
-            seen_rids.add(rid)
-            evs = evmap.get(rid)
-            if evs is None:
-                if not sp_keep[i]:
-                    continue
-                code = 0
-                qv = int(sp_q[i])
-            else:
-                qev = dom_qual(evs)
-                if qev is None:
-                    continue  # other indel type: counts toward DP only
-                if qev < MIN_BQ:
-                    continue
-                code = 1
-                qv = max(4, min(int(qev), MAX_BQ, int(mqs[rid]), 63))
-            q_list.append(qv)
-            s_list.append(int(revs[rid]))
-            b_list.append(code)
-            ad[code] += 1
-        # supporting reads whose matched columns do not cover the
-        # left-normalized anchor (e.g. a deletion left-shifted past the
-        # read's start in a homopolymer) are still real observations
-        for rid in sorted(evmap):
-            if rid in seen_rids:
-                continue
-            qev = dom_qual(evmap[rid])
-            if qev is None or qev < MIN_BQ:
-                continue
-            q_list.append(max(4, min(int(qev), MAX_BQ, int(mqs[rid]), 63)))
-            s_list.append(int(revs[rid]))
-            b_list.append(1)
-            ad[1] += 1
-        if ad[1] == 0 or not q_list:
-            continue
-        qa = np.array(q_list, dtype=np.int64)
-        sa = np.array(s_list, dtype=np.int64)
-        ba = np.array(b_list, dtype=np.int64)
-        DIAG, bsum, _cc = _ERRMOD.cal_arrays(qa, sa, ba)
-        base_counts = np.bincount(ba, minlength=5)
-        gvals = np.array([DIAG[0, 0],
-                          _het_phred(base_counts, 0, 1, bsum),
-                          DIAG[1, 1]])
-        gmin = gvals.min()
-        pl_all = np.minimum(np.floor(gvals - gmin + 0.499), 255).astype(int)
-        pls = [int(pl_all[0]), int(pl_all[2])]
-        gt = int(np.argmin(pls))
-        qual = (float(pls[0]) if gt != 0
-                else (float(pls[1]) if len(pls) > 1 else 0.0))
-        if tk_dom[0] == "I":
-            ref_s = ref[anchor]
-            alt_s = ref[anchor] + tk_dom[1]
-        else:
-            ref_s = ref[anchor : anchor + 1 + tk_dom[1]]
-            alt_s = ref[anchor]
-        recs.append(SiteRecord(pos=int(anchor), ref=ref_s, alts=[alt_s],
-                               qual=qual, dp=int(depth[anchor]), gt=gt,
-                               pls=pls, ads=ad))
-    return recs
 
 
 _LN2 = math.log(2.0)

@@ -108,7 +108,9 @@ def join_reads(seqs):
 def require_lib():
     """The loaded library for the port's main paths: raises when it did not
     build or load.  Returns None only under PANMAP_TPU_NO_NATIVE, the one
-    switch that sends callers to the numpy twins."""
+    switch that sends callers to the numpy twins; a stage with no twin (the
+    indel realignment, genotype/indel.py::call_indels_realign) raises then
+    itself."""
     lib = get_lib()
     if lib is None and not os.environ.get("PANMAP_TPU_NO_NATIVE"):
         raise RuntimeError(

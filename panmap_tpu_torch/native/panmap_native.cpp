@@ -3601,16 +3601,17 @@ int64_t pt_meta_kminmers(const int64_t* c_pos, const uint64_t* c_hash,
 
 // ---------------------------------------------------------------------------
 // bcftools indel realignment over a batch of candidate sites: the per-site
-// work of genotype/indel.py::_gap_prep_and_call (bam2bcf_indel.c
-// bcf_call_gap_prep + the glfgen entries of bam2bcf.c), from the covering
-// reads to the (q, strand, slot) entries, in the Python twin's order and
-// double arithmetic (built -std=c++17: no FMA contraction).  The per-site
-// tail (errmod, PL/GT, est_indelreg, the allele strings) stays in Python.
+// work of the JAX package's walk (panmap_tpu/genotype/indel.py::
+// call_indels_realign; bam2bcf_indel.c bcf_call_gap_prep + the glfgen
+// entries of bam2bcf.c), from the covering reads to the (q, strand, slot)
+// entries, in that walk's order and double arithmetic (built -std=c++17: no
+// FMA contraction).  The per-site tail (errmod, PL/GT, est_indelreg, the
+// allele strings) stays in Python (genotype/indel.py::_site_record).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-// genotype/indel.py's bcftools mpileup defaults
+// bcftools mpileup's defaults (mpileup.c:1363-1384)
 constexpr int64_t IND_MIN_SUPPORT = 2;
 constexpr double IND_MIN_FRAC = 0.05;
 constexpr int64_t IND_WIN = 110;
@@ -3777,8 +3778,8 @@ struct IndScratch {
 };
 
 // one candidate site: status 1 with its types, slots, insertion consensus
-// and entries, else 0 (where _gap_prep_and_call returns None before its
-// errmod); -1 if the insertion capacity was short.  Returns the jobs scored.
+// and entries, else 0 (where the JAX package's walk drops the site before
+// its errmod); -1 if the insertion capacity was short.  Returns the jobs scored.
 int64_t ind_site(const IndReads& R, int64_t s, int64_t pos, IndScratch& S,
                  const IndOut& O) {
     O.status[s] = 0;

@@ -1,14 +1,18 @@
-"""The native indel realignment (native/panmap_native.cpp::pt_indel_sites,
-reached through genotype/indel.py::call_indels_realign) against its Python
-twin (_gap_prep_and_call, the per-site walk the JAX package carries): the
-same SiteRecords and, site by site, the same glfgen entries handed to the
+"""The port's indel realignment (genotype/indel.py::call_indels_realign:
+one threaded native call, native/panmap_native.cpp::pt_indel_sites, then
+_site_record per site) against the JAX package's per-site walk
+(panmap_tpu/genotype/indel.py::call_indels_realign): the same SiteRecords,
+field by field, and, site by site, the same glfgen entries handed to the
 errmod, on long reads with their true cigars, short-read tiles with planted
-multi-allelic indels and the walk's edge cases; and the same output at any
-thread count."""
+multi-allelic indels and the walk's edge cases; the same output at any
+thread count; and a raise, naming that oracle, without the library."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 
+import panmap_tpu.genotype.indel as jax_indel
 import panmap_tpu_torch.native as native
 from panmap_tpu_torch.genotype import caller, indel
 from panmap_tpu_torch.genotype.indel import IndelInput
@@ -30,30 +34,22 @@ class _Recorder:
         return caller._ERRMOD.cal_arrays(eq, es, eb)
 
 
-def _both(monkeypatch, ref, inp, threads=4):
-    """(records, entries) of the native call and of the twin.  The twin
-    scores with pt_glocal_score, as it did on the main path before the
-    batch call (its Python oracle, glocal_score_py, is held equal to it
-    below)."""
+def _fields(records):
+    return [dataclasses.asdict(r) for r in records]
+
+
+def _both(ref, inp, threads=4):
+    """(records, entries) of the port's native call and of the JAX
+    package's walk, which gets a JAX IndelInput of the same arrays and the
+    same recording errmod."""
     depth = np.arange(len(ref)) % 97
     nat = _Recorder()
     got = indel.call_indels_realign(ref, inp, depth, nat, threads)
-    twin = _Recorder()
-    lib = native.get_lib()
-
-    def score(ref_codes, q_codes, quals, bw, gapd, gape):
-        r = np.ascontiguousarray(ref_codes, np.uint8)
-        q = np.ascontiguousarray(q_codes, np.uint8)
-        qq = np.ascontiguousarray(quals, np.uint8)
-        return int(lib.pt_glocal_score(r.ctypes.data, len(r), q.ctypes.data,
-                                       len(q), qq.ctypes.data, bw, gapd,
-                                       gape))
-
-    with monkeypatch.context() as m:
-        m.setattr(native, "get_lib", lambda: None)
-        m.setattr(indel, "_glocal_score", score)
-        want = indel.call_indels_realign(ref, inp, depth, twin, threads)
-    return (got, nat.calls), (want, twin.calls)
+    ref_rec = _Recorder()
+    jinp = jax_indel.IndelInput(**{f.name: getattr(inp, f.name)
+                                   for f in dataclasses.fields(inp)})
+    want = jax_indel.call_indels_realign(ref, jinp, depth, ref_rec)
+    return (got, nat.calls), (want, ref_rec.calls)
 
 
 def _add(ops, op, ln):
@@ -179,23 +175,22 @@ def _short_input(seed, ref, events, L=100, step=3):
     return _pack(fixed, rng, mapq=60)
 
 
-def _assert_same(monkeypatch, ref, inp, threads=4):
-    (got, got_e), (want, want_e) = _both(monkeypatch, ref, inp, threads)
+def _assert_same(ref, inp, threads=4):
+    (got, got_e), (want, want_e) = _both(ref, inp, threads)
     assert got_e == want_e
-    assert got == want
+    assert _fields(got) == _fields(want)
     return got
 
 
-def test_long_reads_match_the_twin(monkeypatch):
+def test_long_reads_match_the_twin():
     ref, inp = _long_input(16, 300)
-    recs = _assert_same(monkeypatch, ref, inp)
+    recs = _assert_same(ref, inp)
     assert len(recs) >= 5
 
 
 def test_thread_count_does_not_change_the_output():
     ref, inp = _long_input(17, 200)
-    found = indel._candidates(len(ref), inp)
-    cand, _, ins_cap = found
+    cand, ins_cap = indel._candidates(len(ref), inp)
     codes = caller._BLUT[inp.seq].astype(np.int64)
     raw = np.frombuffer(ref.encode(), np.uint8)
     ref_codes = caller._BLUT[raw].astype(np.uint8)
@@ -208,7 +203,7 @@ def test_thread_count_does_not_change_the_output():
 
 
 @pytest.mark.parametrize("seed", [5, 6])
-def test_short_read_tiles_with_multiallelic_indels(monkeypatch, seed):
+def test_short_read_tiles_with_multiallelic_indels(seed):
     rng = np.random.default_rng(seed)
     ref = _genome(rng, 1500)
     # two haplotypes at one anchor: a 3 bp and a 5 bp deletion, and an
@@ -228,7 +223,7 @@ def test_short_read_tiles_with_multiallelic_indels(monkeypatch, seed):
         mapq=np.concatenate([inp_a.mapq, inp_b.mapq]),
         rev=np.concatenate([inp_a.rev, inp_b.rev]))
     assert n_a > 0
-    recs = _assert_same(monkeypatch, ref, inp)
+    recs = _assert_same(ref, inp)
     multi = [r for r in recs if r.pos in (400, 800) and len(r.alts) >= 2]
     assert multi, [(r.pos, r.ref, r.alts) for r in recs]
 
@@ -318,7 +313,7 @@ def _many_types(ref, pos):
     return reads
 
 
-def test_edge_cases_match_the_twin(monkeypatch):
+def test_edge_cases_match_the_twin():
     rng = np.random.default_rng(9)
     core = _genome(rng, 3000)
     # a repeat-rich stretch for find_STR, an N run after a site, and a long
@@ -368,18 +363,18 @@ def test_edge_cases_match_the_twin(monkeypatch):
     reads += _masking_ties(ref, 2200)
     reads.sort(key=lambda r: r[0])
     inp = _pack(reads, rng, mapq=60)
-    recs = _assert_same(monkeypatch, ref, inp)
+    recs = _assert_same(ref, inp)
     assert {r.pos for r in recs} >= {300, 2000, 2200}
     # the same reads out of start order take the full overlap scan
     perm = rng.permutation(len(reads))
-    _assert_same(monkeypatch, ref, _pack([reads[i] for i in perm], rng))
+    _assert_same(ref, _pack([reads[i] for i in perm], rng))
     # no read, no indel
-    assert _assert_same(monkeypatch, ref, _pack(reads[:0], rng)) == []
+    assert _assert_same(ref, _pack(reads[:0], rng)) == []
     plain = [r for r in reads if all(op in (0, 4) for op, _ in r[1])]
-    assert _assert_same(monkeypatch, ref, _pack(plain, rng)) == []
+    assert _assert_same(ref, _pack(plain, rng)) == []
     one = [(2660, [[0, 41], [1, 1], [0, 40]],
             ref[2660:2701] + "G" + ref[2701:2741])]
-    assert _assert_same(monkeypatch, ref, _pack(plain + one, rng)) == []
+    assert _assert_same(ref, _pack(plain + one, rng)) == []
 
 
 def test_native_glocal_score_equals_the_python_oracle():
@@ -400,3 +395,19 @@ def test_native_glocal_score_equals_the_python_oracle():
         want = glocal_score_py(r, q, quals, bw, 1e-4, 1e-2)
         got = native.glocal_score_native(r, q, quals, bw, 1e-4, 1e-2)
         assert got == want, (lq, cut, bw)
+
+
+def test_without_the_library_the_call_raises_and_names_its_oracle(
+        monkeypatch):
+    ref, inp = _long_input(18, 20, genome_len=3000)
+    depth = np.zeros(len(ref), np.int64)
+    monkeypatch.setattr(native, "_lib", False)  # as after a failed build
+    monkeypatch.setattr(native, "build_error", "g++: not found")
+    monkeypatch.delenv("PANMAP_TPU_NO_NATIVE", raising=False)
+    with pytest.raises(RuntimeError, match="g\\+\\+: not found"):
+        indel.call_indels_realign(ref, inp, depth, caller._ERRMOD)
+    monkeypatch.setenv("PANMAP_TPU_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="PANMAP_TPU_NO_NATIVE") as err:
+        indel.call_indels_realign(ref, inp, depth, caller._ERRMOD)
+    assert "panmap_tpu/genotype/indel.py::call_indels_realign" in str(
+        err.value)

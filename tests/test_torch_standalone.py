@@ -349,21 +349,20 @@ DIFFERS = {
                                 "cache",
         "_pileup_finish": "device_tally is the device (None: host), passed "
                           "on to tally_columns_device; genotype.columns, "
-                          ".snps and .indels spans; indel_threads passed "
-                          "on to the indel realignment",
+                          ".snps and .indels spans; no event list: the "
+                          "IndelInput is required and goes straight to the "
+                          "native indel realignment with indel_threads",
         "pileup_call": "device_tally is a device or None, not a bool; "
-                       "indel_threads",
+                       "indel_threads; no indel event list",
         "pileup_call_columnar": "device_tally is a device or None, not a "
                                 "bool; a genotype.columns span; "
-                                "indel_threads",
-        "_indel_records": "passes the realignment's thread count on",
+                                "indel_threads; no indel event list",
     },
     "genotype/indel.py": {
         "call_indels_realign":
-            "with the native library the per-site work is one threaded "
-            "call (pt_indel_sites) and _site_record finishes each site; "
-            "the per-site walk over _gap_prep_and_call is _realign_py, run "
-            "without the library; counts on the genotype.indels span",
+            "native only: the per-site work is one threaded call "
+            "(pt_indel_sites) and _site_record finishes each site; without "
+            "the library it raises; counts on the genotype.indels span",
     },
     "meta/assign.py": {
         name: "takes the device: the fast route's batched scorer is "
@@ -426,7 +425,7 @@ CARRIED = {
     "__init__.py": 1,
     "__main__.py": 1, "align/adna.py": 5, "align/batch.py": 10,
     "align/bwt.py": 13, "align/core.py": 15, "align/longread.py": 6,
-    "genotype/baq.py": 9, "genotype/caller.py": 24, "genotype/indel.py": 9,
+    "genotype/baq.py": 9, "genotype/caller.py": 23, "genotype/indel.py": 2,
     "index/builder.py": 28, "io/bam.py": 15, "io/capnp.py": 33,
     "io/fastq.py": 11, "io/index_io.py": 3, "io/panman.py": 17,
     "io/refidx.py": 14, "meta/assign.py": 7, "meta/driver.py": 2, "meta/engine.py": 39,
