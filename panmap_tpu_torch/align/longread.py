@@ -43,12 +43,14 @@ its plain PyTorch version for a CPU device), bit-equal by construction.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import trace
+from ..native import chain_dp_native, require_lib
 from .core import Alignment, RefIndex, _RC_CODE, encode, minimizer_sketch
 
 
@@ -86,6 +88,18 @@ def pick_preset(avg_len: float) -> LongPreset:
     return MAP_ONT if avg_len < 5000 else MAP_HIFI
 
 
+@functools.lru_cache(maxsize=None)
+def _gap_penalty(k: int, max_gap: int) -> np.ndarray:
+    """gamma(dd) of chain_dp for every dd < max_gap, by numpy's float64
+    arithmetic (its log2 may differ from libm's in the last place, and
+    ties pick the predecessors); read-only, one array per (k, max_gap)."""
+    dd = np.arange(max_gap)
+    pen = np.where(dd > 0,
+                   0.01 * k * dd + 0.5 * np.log2(np.maximum(dd, 2)), 0.0)
+    pen.setflags(write=False)
+    return pen
+
+
 def chain_dp(qv: np.ndarray, rv: np.ndarray, k: int, max_gap: int,
              min_cnt: int, min_sc: float, h: int = 50):
     """minimap2 chain DP (chain.c mm_chain_dp semantics): anchors sorted by
@@ -107,58 +121,29 @@ def chain_dp(qv: np.ndarray, rv: np.ndarray, k: int, max_gap: int,
     Returns (best_score, chain_anchor_indices ascending, chains): chains is
     [(score, anchor indices ascending)], the first chain, then the later
     ones that end at an f of at least ``min_sc`` and have ``min_cnt``
-    anchors and ``min_sc`` score; indices are into the input arrays."""
+    anchors and ``min_sc`` score; indices are into the input arrays,
+    ascending in (rpos, qpos) order.
+
+    The DP and the backtrack are one native call (pt_chain_dp); without
+    the library it raises, under PANMAP_TPU_NO_NATIVE too.  Counts on the
+    open span (align.front): chain_calls and anchors."""
+    if require_lib() is None:
+        raise RuntimeError(
+            "the chain DP needs the native library, which "
+            "PANMAP_TPU_NO_NATIVE turns off; it has no numpy twin (its "
+            "oracles are the JAX package's best chain, "
+            "panmap_tpu/align/longread.py::chain_dp, and the benchmark's "
+            "chains, pmbench/reference/chains.py)")
     n = len(qv)
     if n == 0:
         return 0.0, np.empty(0, np.int64), []
+    trace.count("chain_calls", 1)
+    trace.count("anchors", n)
     order = np.lexsort((qv, rv))
-    q = qv[order].astype(np.int64)
-    r = rv[order].astype(np.int64)
-    f = np.full(n, float(k))
-    pre = np.full(n, -1, np.int64)
-    last = np.full(n, -1, np.int64)  # minimap2's predecessor
-    for j in range(1, n):
-        i0 = max(0, j - h)
-        dq = q[j] - q[i0:j]
-        dr = r[j] - r[i0:j]
-        ok = (dq > 0) & (dr > 0) & (np.maximum(dq, dr) < max_gap)
-        if not ok.any():
-            continue
-        dd = np.abs(dr - dq)
-        seg = np.minimum(np.minimum(dq, dr), k)
-        pen = np.where(dd > 0,
-                       0.01 * k * dd + 0.5 * np.log2(np.maximum(dd, 2)), 0.0)
-        cand = np.where(ok, f[i0:j] + seg - pen, -np.inf)
-        bi = int(np.argmax(cand))
-        if cand[bi] > f[j]:
-            f[j] = cand[bi]
-            pre[j] = i0 + bi
-            last[j] = j - 1 - int(np.argmax(cand[::-1]))
-    jbest = int(np.argmax(f))
-    chain = []
-    jj = jbest
-    while jj >= 0:
-        chain.append(jj)
-        jj = int(pre[jj])
-    chain_idx = order[np.array(chain[::-1], dtype=np.int64)]
-
-    used = np.zeros(n, bool)
-    chains = []
-    ends = np.flatnonzero(f >= min_sc)
-    ends = ends[np.argsort(-f[ends], kind="stable")]
-    for j in [jbest] + ends[ends != jbest].tolist():
-        if used[j]:
-            continue
-        ids = []
-        jj = j
-        while jj >= 0 and not used[jj]:
-            ids.append(jj)
-            used[jj] = True
-            jj = int(last[jj])
-        sc = float(f[j] - f[jj]) if jj >= 0 else float(f[j])
-        if not chains or (len(ids) >= min_cnt and sc >= min_sc):
-            chains.append((sc, order[np.array(ids[::-1], dtype=np.int64)]))
-    return float(f[jbest]), chain_idx, chains
+    best, path, chains = chain_dp_native(
+        qv[order], rv[order], k, max_gap, min_cnt, min_sc, h,
+        _gap_penalty(k, max_gap))
+    return best, order[path], [(sc, order[ids]) for sc, ids in chains]
 
 
 def banded_dp_shifted(q: np.ndarray, r: np.ndarray, dlo: int, dhi: int,

@@ -180,6 +180,10 @@ def _get_lib_locked():
         + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 11)                         # outputs
     lib.pt_indel_sites.restype = ctypes.c_int64
+    lib.pt_chain_dp.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 5
+        + [ctypes.c_double] + [ctypes.c_void_p] * 7)
+    lib.pt_chain_dp.restype = ctypes.c_int64
     lib.pt_sketch_count.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -424,6 +428,39 @@ def indel_sites_native(inp, codes: np.ndarray, ref_codes: np.ndarray,
     if (out["status"] < 0).any():
         raise RuntimeError("pt_indel_sites: insertion capacity short")
     return int(jobs), out
+
+
+def chain_dp_native(q: np.ndarray, r: np.ndarray, k: int, max_gap: int,
+                    min_cnt: int, min_sc: float, h: int, pen: np.ndarray):
+    """align/longread.py::chain_dp's DP and backtrack over one strand's
+    anchors ``q``, ``r`` (int64, sorted by (r, q)) in one call
+    (pt_chain_dp); ``pen[d]`` is the gap penalty of a diagonal change d,
+    max_gap entries.  Returns (best score, the best chain's anchors
+    ascending, [(score, anchors ascending)] of the chains kept), anchors as
+    positions into q; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(q)
+    q = np.ascontiguousarray(q, dtype=np.int64)
+    r = np.ascontiguousarray(r, dtype=np.int64)
+    pen = np.ascontiguousarray(pen, dtype=np.float64)
+    if len(r) != n or len(pen) != max_gap:
+        raise ValueError("chain_dp_native: q, r or pen of the wrong length")
+    f_best = ctypes.c_double()
+    n_best = ctypes.c_int64()
+    best = np.empty(n, np.int64)
+    sc = np.empty(n, np.float64)
+    off = np.empty(n + 1, np.int64)
+    ids = np.empty(n, np.int64)
+    nc = lib.pt_chain_dp(
+        q.ctypes.data, r.ctypes.data, n, k, max_gap, h, min_cnt,
+        float(min_sc), pen.ctypes.data, ctypes.byref(f_best),
+        best.ctypes.data, ctypes.byref(n_best), sc.ctypes.data,
+        off.ctypes.data, ids.ctypes.data)
+    chains = [(s, ids[off[c]:off[c + 1]])
+              for c, s in enumerate(sc[:nc].tolist())]
+    return f_best.value, best[:n_best.value], chains
 
 
 def rolling_syncmers_native(b: np.ndarray, k: int, s: int, t: int,

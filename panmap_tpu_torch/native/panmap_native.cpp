@@ -4157,3 +4157,94 @@ int64_t pt_indel_sites(
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// minimap2's chain DP over one strand's anchors and its backtrack
+// (align/longread.py::chain_dp; chain.c mm_chain_dp, mm_chain_backtrack).
+
+extern "C" {
+
+// Anchors (q[j], r[j]), j < n, sorted by (r, q).  f[j] starts at k and takes
+// (f[i] + min(dq, dr, k)) - pen[|dr - dq|] over the predecessors
+// max(0, j - h) <= i < j with dq > 0, dr > 0 and max(dq, dr) < max_gap,
+// where strictly greater; pen has max_gap entries.  The best chain ends at
+// the first anchor of the highest f and follows the first maximising
+// predecessor back: its anchors ascending in best[0..*n_best), its score in
+// *f_best.  The chains follow the last maximising predecessor, from the
+// best anchor, then from every anchor of f >= min_sc by falling f (the
+// earlier on ties), each walking back until it meets an anchor an earlier
+// chain holds; a chain scores f[end] - f[met] (f[end] where it met none)
+// and is kept if it is the first or has min_cnt anchors and min_sc score.
+// Chain c: score chain_sc[c], anchors ascending in
+// chain_ids[chain_off[c]..chain_off[c + 1]).  best, chain_sc and chain_ids
+// hold n entries, chain_off n + 1.  Returns the chains kept.  The scores
+// are the double operations of the numpy expression, in its order.
+int64_t pt_chain_dp(const int64_t* q, const int64_t* r, int64_t n, int64_t k,
+                    int64_t max_gap, int64_t h, int64_t min_cnt,
+                    double min_sc, const double* pen, double* f_best,
+                    int64_t* best, int64_t* n_best, double* chain_sc,
+                    int64_t* chain_off, int64_t* chain_ids) {
+    *f_best = 0.0;
+    *n_best = 0;
+    chain_off[0] = 0;
+    if (n <= 0) return 0;
+    std::vector<double> f(n, (double)k);
+    std::vector<int64_t> pre(n, -1), last(n, -1);
+    for (int64_t j = 1; j < n; ++j) {
+        const int64_t qj = q[j], rj = r[j];
+        double top = 0.0;
+        int64_t first = -1, lastm = -1;
+        for (int64_t i = j > h ? j - h : 0; i < j; ++i) {
+            const int64_t dq = qj - q[i], dr = rj - r[i];
+            if (dq <= 0 || dr <= 0 || std::max(dq, dr) >= max_gap) continue;
+            const int64_t dd = dr > dq ? dr - dq : dq - dr;
+            const double c = (f[i] + (double)std::min(std::min(dq, dr), k))
+                             - pen[dd];
+            if (first < 0 || c > top) {
+                top = c;
+                first = lastm = i;
+            } else if (c == top) {
+                lastm = i;
+            }
+        }
+        if (first >= 0 && top > f[j]) {
+            f[j] = top;
+            pre[j] = first;
+            last[j] = lastm;
+        }
+    }
+    int64_t jbest = 0;
+    for (int64_t j = 1; j < n; ++j)
+        if (f[j] > f[jbest]) jbest = j;
+    *f_best = f[jbest];
+    int64_t m = 0;
+    for (int64_t j = jbest; j >= 0; j = pre[j]) best[m++] = j;
+    std::reverse(best, best + m);
+    *n_best = m;
+
+    std::vector<int64_t> ends{jbest};
+    for (int64_t j = 0; j < n; ++j)
+        if (j != jbest && f[j] >= min_sc) ends.push_back(j);
+    std::stable_sort(ends.begin() + 1, ends.end(),
+                     [&](int64_t a, int64_t b) { return f[a] > f[b]; });
+    std::vector<uint8_t> used(n, 0);
+    int64_t nc = 0, at = 0;
+    for (const int64_t end : ends) {
+        if (used[end]) continue;
+        int64_t cnt = 0, jj = end;
+        for (; jj >= 0 && !used[jj]; jj = last[jj]) {
+            chain_ids[at + cnt++] = jj;
+            used[jj] = 1;
+        }
+        const double sc = jj >= 0 ? f[end] - f[jj] : f[end];
+        if (nc == 0 || (cnt >= min_cnt && sc >= min_sc)) {
+            std::reverse(chain_ids + at, chain_ids + at + cnt);
+            chain_sc[nc] = sc;
+            at += cnt;
+            chain_off[++nc] = at;
+        }
+    }
+    return nc;
+}
+
+}  // extern "C"

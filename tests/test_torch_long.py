@@ -431,6 +431,89 @@ def test_secondary_score_and_mapq_match_the_plain_reference(seed, repeat):
         assert [a.mapq for a in got] == [60] * len(got)
 
 
+def _anchor_sets(pre, seed):
+    """(q, r, k) anchor sets for chain_dp: the edge cases, then random
+    sets from ``seed`` (scatter, noisy colinear runs with duplicates and
+    equal diagonals, a small grid of ties, steps around max_gap)."""
+    k, G = pre.k, pre.max_gap
+    a = lambda *pts: (np.array([p[0] for p in pts], np.int64),
+                      np.array([p[1] for p in pts], np.int64), k)
+    run = np.arange(0, 3 * 130, 3, dtype=np.int64)  # longer than h = 50
+    sets = [
+        a(), a((5, 7)), a((0, 0), (40, 40)), a((40, 40), (0, 0)),
+        a((3, 3), (3, 3), (9, 9), (9, 9), (20, 20)),        # duplicates
+        a(*[(i, i + 50) for i in range(0, 200, 4)]),         # dd == 0
+        a((0, 0), (G - 1, G - 2), (2 * G - 2, 2 * G - 3)),  # max = G - 1
+        a((0, 0), (G, G - 3), (2 * G - 1, 2 * G - 3)),       # max = G
+        (run, run + 1000, k),
+        # two predecessors tie at j: the first and the last maximiser
+        a((0, 10), (10, 0), (110, 110), (200, 200), (210, 190)),
+        # a candidate equal to the start score k (pen[1] == 1 at k = 50):
+        # no predecessor, so f stays and the chain starts there
+        (np.array([0, 1, 30], np.int64), np.array([0, 2, 31], np.int64),
+         50),
+    ]
+    rng = np.random.default_rng(seed)
+    for t in range(24):
+        n = int(rng.integers(3, 260))
+        if t % 4 == 0:
+            q, r = rng.integers(0, 3000, n), rng.integers(0, 30000, n)
+        elif t % 4 == 1:
+            base = np.sort(rng.integers(0, 2000, n))
+            q = base + rng.integers(-2, 3, n) * (rng.random(n) < 0.3)
+            r = base + 5000 + rng.integers(-3, 4, n) * (rng.random(n) < 0.3)
+        elif t % 4 == 2:
+            q, r = rng.integers(0, 12, n), rng.integers(0, 12, n)
+        else:
+            q = np.cumsum(rng.choice([1, G - 1, G, G + 1, 7], n))
+            r = np.cumsum(rng.choice([1, G - 1, G, 3, 7], n))
+        sets.append((q.astype(np.int64), r.astype(np.int64), k))
+    return sets
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("pre", PRESETS, ids=lambda p: p.name)
+def test_chain_dp_matches_both_oracles(pre, seed):
+    """The native chain DP and backtrack (chain_dp) hold exactly, float
+    ==, to the JAX package's chain_dp for the best score and chain, and to
+    the benchmark's plain chains (pmbench/reference/chains.py) for every
+    chain's score, anchor count and anchors."""
+    h = 50
+    for q, r, k in _anchor_sets(pre, seed):
+        args = (k, pre.max_gap, pre.min_cnt, pre.min_chain_score)
+        best, idx, chains = port_longread.chain_dp(q, r, *args, h=h)
+        jbest, jidx, _ = jax_longread.chain_dp(q, r, k, pre.max_gap, h=h)
+        assert best == jbest, (len(q), k)
+        np.testing.assert_array_equal(idx, jidx)
+        if len(q) == 0:
+            assert chains == []
+            continue
+        want, top = ref_chains._strand_chains(q, r, *args[:2], h, *args[2:])
+        assert top == best
+        assert [(sc, len(ids)) for sc, ids in chains] == [
+            (sc, n) for sc, n, _ in want], (len(q), k)
+        for (_, ids), (_, _, wids) in zip(chains, want):
+            np.testing.assert_array_equal(np.sort(ids), np.sort(wids))
+
+
+def test_chain_dp_without_the_library_raises_and_names_its_oracles(
+        monkeypatch):
+    from panmap_tpu_torch import native
+
+    q = r = np.arange(0, 100, 10, dtype=np.int64)
+    monkeypatch.setattr(native, "_lib", False)  # as after a failed build
+    monkeypatch.setattr(native, "build_error", "g++: not found")
+    monkeypatch.delenv("PANMAP_TPU_NO_NATIVE", raising=False)
+    with pytest.raises(RuntimeError, match="g\\+\\+: not found"):
+        port_longread.chain_dp(q, r, 15, 5000, 3, 40)
+    monkeypatch.setenv("PANMAP_TPU_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="PANMAP_TPU_NO_NATIVE") as err:
+        port_longread.chain_dp(q, r, 15, 5000, 3, 40)
+    for oracle in ("panmap_tpu/align/longread.py::chain_dp",
+                   "pmbench/reference/chains.py"):
+        assert oracle in str(err.value)
+
+
 @pytest.mark.parametrize("pre", PRESETS, ids=lambda p: p.name)
 def test_reference_matches_the_benchmarks_plain_dp(pre):
     """long_dp_rows_reference (the kernel's plain version) against the

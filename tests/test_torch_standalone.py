@@ -303,7 +303,8 @@ DIFFERS = {
                       "host's CPU features; no failure stamp file",
         "_get_lib_locked": "loads the hash-named library from _build/ "
                            "(a changed source or another CPU gets another "
-                           "name, so no mtime check)",
+                           "name, so no mtime check); binds the port's own "
+                           "entries (pt_indel_sites, pt_chain_dp)",
     },
     "place/metrics.py": {
         name: "the torch twin of the jax.numpy body, under its name"
@@ -331,9 +332,10 @@ DIFFERS = {
         "LongReadAligner.align_batch":
             "the host path only (the JAX package's device=None); the "
             "device route is TorchLongReadAligner.align_batch",
-        "chain_dp": "also backtracks minimap2's anchor-disjoint chains "
-                    "(mm_chain_backtrack) for the secondary score; the "
-                    "best chain is the JAX package's",
+        "chain_dp": "one native call (pt_chain_dp), no per-anchor loop "
+                    "and no numpy twin; also backtracks minimap2's "
+                    "anchor-disjoint chains (mm_chain_backtrack) for the "
+                    "secondary score; the best chain is the JAX package's",
         "LongReadAligner._chain_front":
             "the anchors in _anchors; the secondary score is the best "
             "anchor-disjoint chain overlapping the primary on the read "

@@ -429,6 +429,10 @@ def test_long_read_span_tree_and_counts(traced):
     (mapped, low), = traced["seen"]["long"]
     assert mapq["counts"] == {"mapped": mapped, "mapq_low": low}
     assert mapped >= 10
+    # the native chain DP's calls and anchors land on the front end's span
+    front = _one(by, "align.front")["counts"]
+    assert set(front) == {"chain_calls", "anchors"}
+    assert front["chain_calls"] >= mapped and front["anchors"] > 0
     indels = _one(by, "genotype.indels")["counts"]
     assert set(indels) == {"sites", "jobs", "threads"}
     assert indels["sites"] > 0 and indels["jobs"] > 0
