@@ -12,8 +12,13 @@ pmbench/reference/, and one JSON line is printed (the contract of
 BENCHMARK.json's command).
 
 The traffic mix's "mode" is pmbench/modes/<mode>.py, found by name
-(manifest.mode): "single" (one isolate a CLI call), "plate" (a --batch
-manifest of isolates a call) and "meta" (a --meta mixture a call).
+(manifest.mode), whatever mode a new file brings: today "single" (one
+isolate a CLI call), "plate" (a --batch manifest of isolates a call),
+"meta" (a --meta mixture a call) and "ont" (one Nanopore isolate a call).
+A mode draws the tree (make_tree) and the samples from the seed, and
+cuts its cell for the CPU tests by its own ``tiny``; a configuration cut
+from its source lists each cut key in "reduced", in BENCHMARK.json and in
+its file alike (pmbench/manifest.py).
 """
 
 from __future__ import annotations

@@ -1,13 +1,21 @@
 """The benchmark's manifest: BENCHMARK.json at the checkout's root, and the
 files it names by name.
 
-  a configuration  pmbench/configs/<config>.json (the entry's ``file``)
+  a configuration  pmbench/configs/<config>.json (the entry's ``file``);
+                   where it is cut from its source, its "reduced" holds a
+                   line "<key>: <cut>" for each key of the entry's
+                   "reduced", in the same order, each a top-level key of
+                   the file, naming the value the source publishes and the
+                   value used
   a traffic mix    pmbench/workloads/<traffic>.json
   a metric reader  pmbench/metrics/<metric>.py, a ``read(trace)`` that
                    returns the metric's value, or None where it finds
                    nothing to read
   a traffic mode   pmbench/modes/<mode>.py (the traffic mix's "mode"), a
-                   ``MODE`` class (pmbench.mode.Mode)
+                   ``MODE`` class (pmbench.mode.Mode), found by name
+                   whatever the mode; it may draw its own tree
+                   (``make_tree``) from keys of its own, and cuts its cell
+                   for the CPU tests by its ``tiny`` classmethod
 
 A later cell, configuration or metric is new files and new entries here;
 no file of the harness changes.

@@ -63,6 +63,19 @@ class Mode:
         self.captured = []
         self.info = {}
 
+    @classmethod
+    def tiny(cls, config: dict, traffic: dict) -> tuple:
+        """The cell cut for a run on a CPU in the tests: ``config`` and
+        ``traffic`` (deep copies, changed in place) returned as
+        (config, traffic).  Here make_panman_model's tree of 300 nodes of
+        6 kb genomes in 8 blocks, 2,500 read pairs and 6 SNPs where the
+        traffic plants SNPs; a mode overrides it to cut keys of its own."""
+        config["tree"].update(n_nodes=300, genome_len=6000, n_blocks=8)
+        traffic["pairs"] = 2500
+        if "snps" in traffic:
+            traffic["snps"] = 6
+        return config, traffic
+
     def rng(self, *stream):
         return np.random.default_rng([self.seed, *stream])
 

@@ -16,6 +16,12 @@ from pmbench.reference import seeds as ref_seeds
 
 class Meta(Mode):
 
+    @classmethod
+    def tiny(cls, config, traffic):
+        config, traffic = super().tiny(config, traffic)
+        traffic["pairs"] = 6000  # a mixture of five leaves
+        return config, traffic
+
     def make_inputs(self):
         rng = self.rng(1)
         props = tuple(self.traffic["proportions"])

@@ -10,6 +10,12 @@ from pmbench.isolates import Isolates
 
 class Plate(Isolates):
 
+    @classmethod
+    def tiny(cls, config, traffic):
+        config, traffic = super().tiny(config, traffic)
+        traffic["pairs"] = 4000  # 500 to each isolate of a plate of 8
+        return config, traffic
+
     def span_targets(self):
         # the forked workers run alignment, genotyping and consensus: a
         # span there would reach for the card; placement's two halves and

@@ -1,6 +1,7 @@
-"""Tiny cells for the CPU tests: the manifest's cells cut to a 300-node
-tree of 6 kb genomes and a few thousand read pairs, run by the harness on
-CPU tensors (the card is stubbed out where the program asks for it)."""
+"""Tiny cells for the CPU tests: the manifest's cells cut by their mode's
+``tiny`` (pmbench.mode.Mode.tiny: as a rule a 300-node tree of 6 kb genomes
+and a few thousand read pairs) to one input, run by the harness on CPU
+tensors (the card is stubbed out where the program asks for it)."""
 
 from __future__ import annotations
 
@@ -14,19 +15,14 @@ import torch
 from pmbench import harness, manifest
 
 CPU = torch.device("cpu")
-TREE = dict(n_nodes=300, genome_len=6000, n_blocks=8)
-PAIRS = {"single": 2500, "plate": 4000, "meta": 6000}
 
 
 def tiny(name: str, root: str = manifest.ROOT) -> manifest.Cell:
     cell = manifest.cell(manifest.load(root), name, root)
-    cell.config = copy.deepcopy(cell.config)
-    cell.traffic = copy.deepcopy(cell.traffic)
-    cell.config["tree"].update(TREE)
-    mode = cell.traffic["mode"]
-    cell.traffic.update(pairs=PAIRS.get(mode, 2500), inputs=1)
-    if mode != "meta":
-        cell.traffic["snps"] = 6
+    mode = manifest.mode(cell.traffic["mode"], root)
+    cell.config, cell.traffic = mode.tiny(copy.deepcopy(cell.config),
+                                          copy.deepcopy(cell.traffic))
+    cell.traffic["inputs"] = 1
     return cell
 
 

@@ -84,14 +84,22 @@ def rec(name, start_s, end_s, **counts):
                 pid=1, sample=0, counts=counts)
 
 
+# the harness's spans and the card's trace, which the cell shares with others
+SHARED = ("align.s", "genotype.s", "device.idle_pct", "device.kernel_ms")
+
+
 def test_manifest_lists_the_cell_and_its_metrics():
     bench = manifest.load()
     cell = manifest.cell(bench, CELL)
     assert cell.chips == 1 and cell.traffic["mode"] == "ont"
     assert {m["name"] for m in cell.end_to_end} == {"sample_s", "setup_s"}
-    assert sorted(m["name"] for m in cell.per_layer) == sorted(NEW)
+    assert sorted(m["name"] for m in cell.per_layer) == sorted(NEW + SHARED)
     for m in cell.per_layer:
-        assert m["workloads"] == [CELL] and m["moves"] == "sample_s"
+        assert m["moves"] == "sample_s"
+        if m["name"] in NEW:
+            assert m["workloads"] == [CELL]
+        else:
+            assert CELL in m["workloads"] and len(m["workloads"]) > 1
 
 
 def test_readers_on_synthetic_records():
@@ -145,6 +153,20 @@ def test_sound_run_is_correct(tmp_path):
     assert info["long_dp_items_checked"] == info["secondary_scores_checked"]
     assert info["long_dp_items_checked"] >= 0.9 * READS
     assert checks(out)["mapq_low_share"] == 0.0
+
+
+def test_a_tiny_traced_run_reports_the_harness_spans(tmp_path):
+    """The mode's harness spans "align" and "genotype" read in a traced
+    run; the card's trace, which device.idle_pct and device.kernel_ms read,
+    has no device operation on the CPU, so those two read on the card
+    only."""
+    out, res = small.run(tiny(), tmp_path, trace=True)
+    assert out["correct"], out["checks"]
+    got = out["metrics"]
+    assert got["align.s"]["value"] > 0 and got["genotype.s"]["value"] > 0
+    assert got["ont.front_s"]["value"] <= got["align.s"]["value"]
+    assert res["trace"].device_ops == []
+    assert "device.idle_pct" not in got and "device.kernel_ms" not in got
 
 
 def test_control_is_not_correct(tmp_path):
